@@ -1,0 +1,64 @@
+"""Carry scheduler state into the port from plain data.
+
+The port imports nothing of the JAX package, so state crosses as plain
+Python and numpy data: ``dataclasses.asdict`` of a job, a list of
+per-machine capacity dicts plus the host ledger, a dict of price
+parameters. The tests use these to hand both packages the same jobs and
+the same mid-run ledger.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import numpy as np
+import torch
+
+from .backend import get_backend
+from .core.cluster import Cluster, Machine
+from .core.job import ElasticProfile, JobSpec, QualityCurve, SigmoidUtility
+from .core.pricing import PriceParams
+
+
+def job_from_record(rec: Mapping) -> JobSpec:
+    """A ``JobSpec`` from the ``dataclasses.asdict`` of one, including its
+    ``SigmoidUtility`` and any ``ElasticProfile``."""
+    rec = dict(rec)
+    rec["utility"] = SigmoidUtility(**rec["utility"])
+    rec["worker_demand"] = dict(rec["worker_demand"])
+    rec["ps_demand"] = dict(rec["ps_demand"])
+    el = rec.get("elastic")
+    if el is not None:
+        el = dict(el)
+        el["levels"] = tuple(el["levels"])
+        if el.get("curve") is not None:
+            el["curve"] = QualityCurve(**el["curve"])
+        rec["elastic"] = ElasticProfile(**el)
+    return JobSpec(**rec)
+
+
+def jobs_from_records(records: List[Mapping]) -> List[JobSpec]:
+    return [job_from_record(r) for r in records]
+
+
+def cluster_from_arrays(capacities: List[Dict[str, float]], horizon: int,
+                        used: np.ndarray, device=None) -> Cluster:
+    """A cluster with one machine per capacity dict whose ledger is
+    ``used`` (T, H, R on the sorted resource axis), placed on ``device``
+    (None = the CUDA card). The version is bumped past construction so
+    no cache built before the handover can be mistaken for current."""
+    machines = [Machine(h, dict(cap)) for h, cap in enumerate(capacities)]
+    cl = Cluster(machines=machines, horizon=horizon,
+                 backend=get_backend(None, device))
+    used = np.asarray(used, dtype=np.float64)
+    if used.shape != tuple(cl._used.shape):
+        raise ValueError(f"ledger shape {used.shape} != "
+                         f"{tuple(cl._used.shape)}")
+    cl._used.copy_(torch.from_numpy(used))
+    cl.version += 1
+    cl._slot_versions[:] = cl.version
+    return cl
+
+
+def price_params_from_dict(d: Mapping) -> PriceParams:
+    """``PriceParams`` from ``{"U": {resource: U^r}, "L": L, "mu": mu}``."""
+    return PriceParams(U=dict(d["U"]), L=float(d["L"]), mu=float(d["mu"]))

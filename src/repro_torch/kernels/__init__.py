@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+torch version:
+
+    pricing   — the snapshot bundle: masked price reductions and head-room
+                over a (W, H, R) slot stack (replaces the JAX package's
+                Pallas ``_pallas_bundle_call``)
+    minplus   — the Algorithm-3 min-plus DP sweep, fused into one launch
+                (replaces the Pallas ``_pallas_minplus_call`` step)
+
+Sources live in ``csrc/``; ``_build`` compiles them with nvcc at first
+use and loads them with ctypes. A wrapper given CPU tensors runs the
+plain version; given CUDA tensors it launches the kernel or raises.
+"""

@@ -122,3 +122,8 @@ class _Unsatisfied(Exception):
 
 
 _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skipped where there is none")
