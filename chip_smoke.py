@@ -4,20 +4,33 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-nvcc, holds each against its plain torch version on the card (bit for
-bit), drives the port's PD-ORS offer path at the paper's largest Fig. 6
-point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
-workload_scale=0.3, batch=(50,200), quanta=20, seed 0) on the card and
-then on the CPU, and requires identical decisions. It prints the main
-path's numbers, the card's name and power limit, one JSON line with
-each kernel's launches, error, times and bound, and as its last line
-``{"ok": true, "device": {...}}``. Every phase raises on failure; the
-script exits nonzero without a result line when there is no card or no
-port next to it.
+It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+with nvcc, one nvcc per source in parallel, and drives the port's two
+paths:
+
+  * the PD-ORS offer path: both offer-path kernels against their plain
+    torch versions on the card (bit for bit), then the paper's largest
+    Fig. 6 point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
+    workload_scale=0.3, batch=(50,200), quanta=20, seed 0) on the card
+    and on the CPU, requiring identical decisions;
+  * the serving path: the rmsnorm and flash-attention kernels against
+    their plain versions on the card, then Gemma-7B at full width and
+    full depth (28 layers, random weights from seed 0, float32 params,
+    bfloat16 compute) serving 8 requests of 1024 prompt tokens and 32
+    new tokens, max_batch 4, greedy, through ``ServeEngine.serve``, with
+    exact launch counts of both kernels; then a 2-layer float32 cut of
+    the full-width model served on the card and on the CPU from the same
+    weights, requiring identical greedy tokens.
+
+It prints each path's numbers, the card's name and power limit, one JSON
+line with each kernel's launches, error, times and bound, and as its
+last line ``{"ok": true, "device": {...}}``. Every phase raises on
+failure; the script exits nonzero without a result line when there is
+no card or no port next to it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,6 +43,15 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12          # float64 outside the tensor cores
+FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # bfloat16 tensor cores, dense
+
+# the serving run: Gemma-7B at full width and depth
+SERVE_POINT = dict(arch="gemma-7b", requests=8, prompt_len=1024,
+                   max_new=32, max_batch=4, seed=0)
+# the cuda-vs-cpu parity run: the full-width model cut to 2 layers, f32
+PARITY_POINT = dict(arch="gemma-7b", layers=2, requests=2, prompt_len=128,
+                    max_new=8, seed=1)
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -258,6 +280,252 @@ def sweep_numbers(minplus, tcost) -> dict:
     }
 
 
+# ------------------------------------------------ serving path: kernels
+def _max_err(got: torch.Tensor, want: torch.Tensor, what: str, **tol) -> float:
+    """Hold ``got`` to ``want`` in float32 within ``tol``; returns the max
+    abs difference."""
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, msg=lambda m: f"{what}: {m}", **tol)
+    return float((g - w).abs().max())
+
+
+def check_model_kernels(rmsnorm, flash) -> dict:
+    """rmsnorm and flash attention against their plain versions on the
+    card, at the serving path's shapes and the edge cases; returns the
+    max abs error per kernel."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    err = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    for N, d in [(4096, 3072), (4, 3072), (1024 * 64, 128), (96, 512)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
+            scale = (torch.randn((d,), generator=gen) + 1).to(dev)
+            tol = dict(rtol=8e-3, atol=1e-6) if dt == torch.bfloat16 \
+                else dict(rtol=1e-5, atol=1e-5)
+            err["rmsnorm"] = max(err["rmsnorm"], _max_err(
+                rmsnorm.rmsnorm_cuda(x, scale),
+                rmsnorm.rmsnorm_torch(x, scale),
+                f"rmsnorm ({N}, {d}) {dt}", **tol))
+    cases = [  # B, S_q, S_k, H, KV, D, causal, window, dtypes
+        (4, 1024, 1024, 16, 16, 256, True, 0, ("bf16", "f32")),
+        (2, 512, 512, 64, 8, 128, True, 0, ("bf16", "f32")),
+        (1, 200, 200, 4, 2, 256, True, 0, ("bf16", "f32")),
+        (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
+        (1, 512, 512, 4, 4, 128, True, 32, ("bf16", "f32")),
+        (1, 512, 512, 4, 4, 128, True, 128, ("bf16", "f32")),
+    ]
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for B, S_q, S_k, H, KV, D, causal, window, names in cases:
+        for name in names:
+            dt = dts[name]
+            q, k, v = (torch.randn(shape, generator=gen).to(dt).to(dev)
+                       for shape in ((B, S_q, H, D), (B, S_k, KV, D),
+                                     (B, S_k, KV, D)))
+            tol = dict(rtol=2e-2, atol=2e-2) if name == "bf16" \
+                else dict(rtol=2e-5, atol=2e-5)
+            err["flash_attention"] = max(err["flash_attention"], _max_err(
+                flash.flash_attention_cuda(q, k, v, causal, window),
+                flash.flash_attention_torch(q, k, v, causal, window),
+                f"flash {(B, S_q, S_k, H, KV, D)} causal={causal} "
+                f"window={window} {name}", **tol))
+    # window 1: every query attends to itself alone, so out == v
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(dev) * 3
+               for _ in range(3))
+    err["flash_attention"] = max(err["flash_attention"], _max_err(
+        flash.flash_attention_cuda(q, k, v, True, 1), v, "flash window=1",
+        rtol=1e-5, atol=1e-5))
+    torch.cuda.synchronize()
+    return err
+
+
+# ---------------------------------------------- serving path: main path
+def _requests(Request, vocab: int, n: int, length: int, max_new: int,
+              seed: int):
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, vocab, length).astype(np.int32),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def serve_full_width(rmsnorm, flash) -> dict:
+    """Gemma-7B, all 28 layers, on the card through ServeEngine.serve;
+    raises unless every completion, the prefill logits and the launch
+    counts are right. Returns the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    p = SERVE_POINT
+    cfg = get_config(p["arch"])
+    cache_len = p["prompt_len"] + p["max_new"] + 8
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(p["seed"], "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(cfg, params, max_batch=p["max_batch"],
+                         cache_len=cache_len)
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
+    del params                  # the engine keeps the bf16 copy it reads
+    reqs = _requests(Request, cfg.vocab_size, p["requests"],
+                     p["prompt_len"], p["max_new"], p["seed"])
+
+    # warm-up (first use of each cuBLAS shape), and the prefill logits
+    first = torch.from_numpy(np.stack([r.prompt for r in reqs[:4]])).long()
+    logits, _ = engine.model.prefill(engine.params,
+                                     {"tokens": first.cuda()}, cache_len)
+    if logits.shape != (4, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are "
+                             f"not finite (4, 1, {cfg.vocab_size})")
+    del logits
+    engine.run_batch([dataclasses.replace(r, max_new_tokens=2)
+                      for r in reqs[:4]])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm.LAUNCHES = 0
+    flash.LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = engine.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "flash_attention": flash.LAUNCHES}
+    serve_peak = torch.cuda.max_memory_allocated()
+
+    batches = -(-p["requests"] // p["max_batch"])
+    forwards = batches * p["max_new"]            # 1 prefill + 31 decodes
+    want = {"rmsnorm": forwards * (2 * cfg.num_layers + 1),
+            "flash_attention": batches * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if sorted(c.request_id for c in done) != list(range(p["requests"])):
+        raise AssertionError("not every request was answered")
+    for c in done:
+        if c.tokens.shape != (p["max_new"],) or c.tokens.min() < 0 or \
+                c.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {c.request_id}: bad tokens "
+                                 f"{c.tokens}")
+
+    # the same run under the profiler: device busy time by kernel
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        engine.serve(reqs)
+        prof_wall = time.perf_counter() - t1
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e6
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+
+    per_batch = sorted({(c.prefill_ms, c.decode_ms) for c in done})
+    n_tok = sum(len(c.tokens) for c in done)
+    out = dict(init_s=init_s, wall=wall, tokens=n_tok,
+               tok_per_s=n_tok / wall, per_batch=per_batch,
+               setup_peak_gb=setup_peak / 1e9, serve_peak_gb=serve_peak / 1e9,
+               launches=launches, prof_wall=prof_wall, busy=busy,
+               idle=1 - busy / prof_wall, top=top,
+               rmsnorm_s=sum(t for k, t in by_kernel.items()
+                             if "rmsnorm_kernel" in k),
+               flash_s=sum(t for k, t in by_kernel.items()
+                           if "flash_fwd_kernel" in k))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_cuda_cpu() -> dict:
+    """The full-width model cut to 2 layers in float32, served on the
+    card and on the CPU from the same weights: identical greedy tokens,
+    last-position prefill logits within rtol=atol 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, lm
+    from repro_torch.serve import Request, ServeEngine
+
+    p = PARITY_POINT
+    cfg = dataclasses.replace(get_config(p["arch"]), num_layers=p["layers"],
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    gpu = model.init(p["seed"], "cuda")
+    cpu = lm.LM(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    cache_len = p["prompt_len"] + p["max_new"] + 8
+    reqs = _requests(Request, cfg.vocab_size, p["requests"], p["prompt_len"],
+                     p["max_new"], p["seed"])
+    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).long()
+    lg, _ = model.prefill(gpu, {"tokens": tokens.cuda()}, cache_len)
+    lc, _ = model.prefill(cpu, {"tokens": tokens}, cache_len)
+    err = _max_err(lg.cpu(), lc, "parity prefill logits", rtol=1e-3,
+                   atol=1e-3)
+    out = {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        engine = ServeEngine(cfg, params, max_batch=p["requests"],
+                             cache_len=cache_len)
+        t0 = time.perf_counter()
+        out[name] = engine.serve(reqs)
+        out[name + "_s"] = time.perf_counter() - t0
+    for g, c in zip(out["cuda"], out["cpu"]):
+        if not np.array_equal(g.tokens, c.tokens):
+            raise AssertionError(f"request {g.request_id}: cuda tokens "
+                                 f"{g.tokens} != cpu {c.tokens}")
+    del gpu
+    torch.cuda.empty_cache()
+    return dict(logits_err=err, tokens=[c.tokens.tolist()
+                                        for c in out["cuda"]],
+                cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
+
+
+# ----------------------------------------------- serving path: times
+def rmsnorm_numbers(rmsnorm, x, scale) -> dict:
+    N, d = x.shape
+    nbytes = 2 * N * d * x.element_size() + d * scale.element_size()
+    ops = 4 * N * d                  # square, add; multiply twice
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    w = scale.to(x.dtype)
+    return {
+        "shape": [N, d], "dtype": str(x.dtype).replace("torch.", ""),
+        "ms": _time_ms(lambda: rmsnorm.rmsnorm_cuda(x, scale)),
+        "device_ms": _device_ms(lambda: rmsnorm.rmsnorm_cuda(x, scale),
+                                "rmsnorm_kernel"),
+        "plain_ms": _time_ms(lambda: rmsnorm.rmsnorm_torch(x, scale)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": _time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w, 1e-6)),
+    }
+
+
+def flash_numbers(flash, q, k, v) -> dict:
+    B, S, H, D = q.shape
+    pairs = int(flash.allowed(S, S, True, 0).sum())
+    ops = 4 * B * H * D * pairs
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q,k,v,o
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    return {
+        "shape": [B, S, H, D], "dtype": str(q.dtype).replace("torch.", ""),
+        "ms": _time_ms(lambda: flash.flash_attention_cuda(q, k, v),
+                       reps=20, warmup=3),
+        "device_ms": _device_ms(lambda: flash.flash_attention_cuda(q, k, v),
+                                "flash_fwd_kernel", reps=10),
+        "plain_ms": _time_ms(lambda: flash.flash_attention_torch(q, k, v),
+                             reps=10, warmup=2),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": _time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps=20, warmup=3),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -265,7 +533,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch as rt
     from repro_torch.kernels import _build, minplus, pricing
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm
     from repro_torch.obs import trace
+
+    # float32 products in full float32 on the card (the parity phase)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -331,11 +605,48 @@ def main() -> int:
     print(f"device busy {busy:.4f} s of a profiled {wall_prof:.4f} s run: "
           f"idle share {1 - busy / wall_prof:.4f}")
 
-    # 5. times at the main path's shapes
+    # 5. serving path: its kernels against their plain versions
+    merr = check_model_kernels(rmsnorm, flash)
+    print(f"model kernel checks: within tolerance of the plain versions "
+          f"(max abs err {merr})")
+
+    # 6. serving path: Gemma-7B at full width and depth on the card
+    sv = serve_full_width(rmsnorm, flash)
+    p = SERVE_POINT
+    print(f"serving ({p['arch']}, 28 layers, {p['requests']} requests x "
+          f"{p['prompt_len']} prompt + {p['max_new']} new, max_batch "
+          f"{p['max_batch']}, greedy): wall {sv['wall']:.4f} s, "
+          f"{sv['tokens']} tokens, {sv['tok_per_s']:.2f} tok/s; per batch "
+          f"(prefill ms, decode ms) "
+          f"{[(round(a, 3), round(b, 3)) for a, b in sv['per_batch']]}; "
+          f"launches {sv['launches']}; init {sv['init_s']:.2f} s; peak "
+          f"memory {sv['setup_peak_gb']:.2f} GB at set-up (f32 params + "
+          f"bf16 copy), {sv['serve_peak_gb']:.2f} GB while serving")
+    print(f"serving device busy {sv['busy']:.4f} s of a profiled "
+          f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
+          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s; "
+          f"top kernels by device time: " + "; ".join(
+              f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
+
+    # 7. serving path: 2-layer float32 cut, cuda against cpu
+    pa = parity_cuda_cpu()
+    print(f"parity (2-layer full-width f32, cuda vs cpu): identical greedy "
+          f"tokens {pa['tokens'][0]}..., prefill logits max abs err "
+          f"{pa['logits_err']:.3e}; serve cuda {pa['cuda_s']:.4f} s, cpu "
+          f"{pa['cpu_s']:.4f} s")
+
+    # 8. times at the main paths' shapes
     gen = torch.Generator().manual_seed(1)
     price, free, wdem, sdem = _bundle_inputs(gen, 20, 100, 4, zero_cols=(0,))
     bnum = bundle_numbers(pricing, price.cuda(), free.cuda(), wdem, sdem, 4.0)
     snum = sweep_numbers(minplus, _sweep_inputs(gen, 20, 21).cuda())
+    x = (torch.randn((4096, 3072), generator=gen) * 3).to(torch.bfloat16)
+    rnum = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
+    rdec = rmsnorm_numbers(rmsnorm, x[:4].cuda(), torch.ones(3072).cuda())
+    print(f"rmsnorm at the decode shape (4, 3072) bf16: {rdec}")
+    q, k, v = (torch.randn((4, 1024, 16, 256), generator=gen)
+               .to(torch.bfloat16).cuda() for _ in range(3))
+    fnum = flash_numbers(flash, q, k, v)
     kernels = [
         {"name": "price_bundle", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/price_bundle.cu",
@@ -347,6 +658,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/minplus.py:124",
          "launches": launches["minplus_sweep"],
          "max_abs_err": err["minplus_sweep"], **snum},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:35",
+         "launches": sv["launches"]["rmsnorm"],
+         "max_abs_err": merr["rmsnorm"], **rnum},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:94",
+         "launches": sv["launches"]["flash_attention"],
+         "max_abs_err": merr["flash_attention"], **fnum},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
-"""Carry scheduler state into the port from plain data.
+"""Carry scheduler state and model weights into the port from plain data.
 
 The port imports nothing of the JAX package, so state crosses as plain
 Python and numpy data: ``dataclasses.asdict`` of a job, a list of
 per-machine capacity dicts plus the host ledger, a dict of price
-parameters. The tests use these to hand both packages the same jobs and
-the same mid-run ledger.
+parameters, a model's param tree as nested dicts of numpy arrays. The
+tests use these to hand both packages the same jobs, the same mid-run
+ledger and the same weights.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ import numpy as np
 import torch
 
 from .backend import get_backend
+from .backend.torch_backend import resolve_device
 from .core.cluster import Cluster, Machine
 from .core.job import ElasticProfile, JobSpec, QualityCurve, SigmoidUtility
 from .core.pricing import PriceParams
+from .models.lm import LM
 
 
 def job_from_record(rec: Mapping) -> JobSpec:
@@ -62,3 +65,43 @@ def cluster_from_arrays(capacities: List[Dict[str, float]], horizon: int,
 def price_params_from_dict(d: Mapping) -> PriceParams:
     """``PriceParams`` from ``{"U": {resource: U^r}, "L": L, "mu": mu}``."""
     return PriceParams(U=dict(d["U"]), L=float(d["L"]), mu=float(d["mu"]))
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = np.asarray(val)
+    return out
+
+
+def lm_params_from_jax(cfg, tree: Mapping, device=None):
+    """The port's ``LM`` params from the JAX package's ``lm.init`` tree
+    (nested dicts of numpy arrays): ``embed/table``, ``unembed/table``,
+    ``final_norm/scale`` and ``layers/...`` stacked on a leading L axis
+    (``attn_norm/scale``, ``attn/{wq,wk,wv,wo,q_norm,k_norm}``,
+    ``ffn_norm/scale``, ``mlp/{w_gate,w_up,w_down}``). The port's modules
+    keep the tree's names and per-layer layouts, so layer i of every
+    stacked array becomes ``layers.{i}.<name>``. Every array is copied
+    into the param of that name (the config's param dtype); missing or
+    extra names raise."""
+    device = resolve_device(device)
+    flat = _flatten(tree)
+    state: Dict[str, torch.Tensor] = {}
+    for name, arr in flat.items():
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            if arr.shape[0] != cfg.num_layers:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
+                                 f"{cfg.num_layers} layers")
+            for i in range(cfg.num_layers):
+                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                    np.array(arr[i]))
+        else:
+            state[name] = torch.from_numpy(np.array(arr))
+    params = LM(cfg, device=device)
+    params.load_state_dict(state, strict=True)
+    return params

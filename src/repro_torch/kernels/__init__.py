@@ -6,6 +6,12 @@ torch version:
                 Pallas ``_pallas_bundle_call``)
     minplus   — the Algorithm-3 min-plus DP sweep, fused into one launch
                 (replaces the Pallas ``_pallas_minplus_call`` step)
+    rmsnorm   — fused RMSNorm, one warp per row (replaces the Pallas
+                ``_rmsnorm_kernel``)
+    flash_attention — forward online-softmax attention over the model's
+                (B, S, H, D) layout, grouped kv heads, causal and window
+                masks (replaces the Pallas ``_flash_kernel``)
+    ops       — the model's routed entry points to the last two
 
 Sources live in ``csrc/``; ``_build`` compiles them with nvcc at first
 use and loads them with ctypes. A wrapper given CPU tensors runs the

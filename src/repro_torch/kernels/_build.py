@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use into its own shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -shared -Xcompiler -fPIC -Xptxas -v  [per-source flags]
 
-``--fmad=false`` keeps nvcc from contracting a multiply and an add into
-one FMA: the kernels are held bit-identical to float64 numpy references,
-which round after every operation. The library lands in ``build/`` next
-to this file (ignored by git), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded.
+The two float64 kernels of the offer path add ``--fmad=false``, which
+keeps nvcc from contracting a multiply and an add into one FMA: they are
+held bit-identical to float64 numpy references, which round after every
+operation. The float32 model kernels (rmsnorm, flash attention) are held
+to a tolerance and build without it. The library lands in ``build/``
+next to this file (ignored by git), named by a hash of the source and
+its flags, so an edited source is rebuilt and an unchanged one is loaded.
 No PyTorch headers are included, which keeps a build to seconds.
 Nothing is fetched; a failed build raises.
 """
@@ -22,15 +24,21 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("price_bundle", "minplus_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: every source, with the flags it adds to ``NVCC_FLAGS``
+SOURCES: Dict[str, Tuple[str, ...]] = {
+    "price_bundle": ("--fmad=false",),
+    "minplus_sweep": ("--fmad=false",),
+    "rmsnorm": (),
+    "flash_attention": (),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register/shared-memory report) per source built
@@ -50,9 +58,13 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + SOURCES[name]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
@@ -64,7 +76,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc

@@ -1,0 +1,45 @@
+"""The model's entry points to the two model kernels, routed by device.
+
+A wrapper given CPU tensors runs the kernel's plain torch version; given
+CUDA tensors it launches the hand-written kernel or raises. Nothing falls
+back from the card to the plain version.
+
+    rmsnorm(x (..., d), scale (d,))                 -> (..., d)
+    flash_attention(q (B,S_q,H,D), k, v (B,S_k,KV,D)) -> (B,S_q,H,D)
+
+The counterparts of the JAX package's ``repro.kernels.ops`` wrappers. The
+attention kernel reads the model's layout and maps each query head to its
+kv head itself, so unlike the JAX wrapper no (B*H, S, D) transpose and no
+broadcast of the kv heads is made, and any sequence length is taken.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import flash_attention as _fa
+from . import rmsnorm as _rn
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis of x, any leading dims."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    if x2.device.type == "cpu":
+        out = _rn.rmsnorm_torch(x2, scale, eps)
+    else:
+        out = _rn.rmsnorm_cuda(x2.contiguous(), scale, eps)
+    return out.reshape(x.shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention with index-based causal/window masks (see
+    ``repro_torch.kernels.flash_attention``)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_torch(q, k, v, causal, window, sm_scale)
+    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window, sm_scale)

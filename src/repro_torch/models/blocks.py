@@ -1,0 +1,114 @@
+"""Transformer block and layer stack for the dense decoder.
+
+The port of the JAX package's ``models/blocks.py`` for the dense family
+(and dense GQA configs generally): attn -> mlp, pre-norm, residual. The
+reference stacks every layer's params on a leading L axis and scans one
+block over them; here the stack is an ``nn.ModuleList`` walked by a
+Python loop, and each layer's cache is its own dict (a list of them for
+the stack). Per-layer windows are a list of ints (or None).
+
+MoE, SSM (Mamba-2), hybrid (Hymba) and cross-attention (enc-dec) blocks
+are ported in later slices and raise ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .attention import Cache, init_attention_cache, make_attention
+from .layers import MLP, RMSNorm
+
+BIG_WINDOW = 2**30  # "global" sentinel for per-layer windows
+
+
+def has_attention(cfg: ArchConfig) -> bool:
+    return cfg.attention != "none"
+
+
+def has_mlp(cfg: ArchConfig) -> bool:
+    return cfg.d_ff > 0 and cfg.moe is None
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    """Raise for the block families this slice of the port lacks."""
+    missing = []
+    if cfg.moe is not None:
+        missing.append("MoE")
+    if cfg.ssm is not None or cfg.hybrid or not has_attention(cfg):
+        missing.append("SSM/hybrid")
+    if cfg.encoder_layers:
+        missing.append("encoder-decoder cross-attention")
+    if cfg.frontend is not None:
+        missing.append(f"the {cfg.frontend} frontend")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {', '.join(missing)} is ported in a later slice "
+            f"of repro_torch")
+
+
+# ---------------------------------------------------------------- one block
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        require_dense(cfg)
+        dt = cfg.dtype("param")
+        self.attn_norm = RMSNorm(cfg.d_model, dt, device)
+        self.attn = make_attention(cfg, device)
+        if has_mlp(cfg):
+            self.ffn_norm = RMSNorm(cfg.d_model, dt, device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dt, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                window: Optional[int], cache: Optional[Cache] = None,
+                prefill: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        a_out, cache = self.attn(self.attn_norm(x), positions, window=window,
+                                 cache=cache, prefill=prefill)
+        x = x + a_out
+        if hasattr(self, "mlp"):
+            x = x + self.mlp(self.ffn_norm(x))
+        return x, cache
+
+
+# ---------------------------------------------------------------- stack
+def layer_windows(cfg: ArchConfig, num_layers: int,
+                  override_window: Optional[int] = None
+                  ) -> Optional[List[int]]:
+    """Per-layer sliding windows (or None = all full)."""
+    if override_window is not None:
+        base = override_window
+    elif cfg.sliding_window is not None:
+        base = cfg.sliding_window
+    else:
+        return None
+    w = [base] * num_layers
+    if cfg.global_attn_every:
+        for i in range(num_layers):
+            if i % cfg.global_attn_every == 0 or i == num_layers - 1:
+                w[i] = BIG_WINDOW
+    return w
+
+
+def init_stack_cache(cfg: ArchConfig, num_layers: int, batch: int,
+                     cache_len: int, dtype, device=None) -> List[Cache]:
+    return [init_attention_cache(cfg, batch, cache_len, dtype, device)
+            for _ in range(num_layers)]
+
+
+def apply_stack(
+    layers: nn.ModuleList,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    windows: Optional[List[int]],
+    cache: Optional[List[Cache]] = None,
+    prefill: bool = False,
+) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
+    """Run the blocks in order over x. Returns (x, cache)."""
+    for i, block in enumerate(layers):
+        x, _ = block(x, positions, None if windows is None else windows[i],
+                     cache=None if cache is None else cache[i],
+                     prefill=prefill)
+    return x, cache

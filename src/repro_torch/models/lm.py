@@ -1,0 +1,126 @@
+"""Decoder-only language model, serving half: init, cache, prefill, decode.
+
+The port of the JAX package's ``models/lm.py`` for the dense family:
+
+    init(cfg, seed, device)                    -> params (an ``LM`` module)
+    init_cache(cfg, batch, cache_len, device)  -> per-layer caches
+    prefill(cfg, params, batch, cache)         -> (last logits, cache)
+    decode_step(cfg, params, tokens, pos, cache) -> (logits, cache)
+    compute_params(cfg, params)                -> params for the forward
+
+``batch`` is a dict {"tokens": (B, S) integer tensor}. The training
+forward (``lm.forward``, the loss) is ported with the training slice.
+
+``init`` allocates every parameter on the requested device and fills it
+there with an explicit generator: a full-width model never passes
+through host memory.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..backend.torch_backend import resolve_device
+from ..configs.base import ArchConfig
+from .attention import Cache
+from .blocks import Block, apply_stack, init_stack_cache, layer_windows, \
+    require_dense
+from .layers import Embedding, RMSNorm, init_params_
+
+
+class LM(nn.Module):
+    """Params, named as the reference's tree: ``embed.table``,
+    ``layers.{i}.{attn_norm,attn,ffn_norm,mlp}.*``, ``final_norm.scale``
+    and, untied, ``unembed.table``."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        require_dense(cfg)
+        dt = cfg.dtype("param")
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, device)
+        self.layers = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dt, device)
+        if not cfg.tie_embeddings:
+            self.unembed = Embedding(cfg.vocab_size, cfg.d_model, dt, device)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        table = self.embed if self.cfg.tie_embeddings else self.unembed
+        return table.unembed(x, self.cfg.attn_logit_softcap)
+
+
+def param_device(params: nn.Module) -> torch.device:
+    return next(params.parameters()).device
+
+
+def init(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
+    """Random params on ``device`` (None = the CUDA card), from a
+    generator on that device seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params_(LM(cfg, device), gen)
+
+
+def compute_params(cfg: ArchConfig, params: LM) -> LM:
+    """``params`` with every matrix and embedding table cast once to the
+    compute dtype; norm scales stay as they are (the norm reads them in
+    float32). The forward computes ``x @ w.to(x.dtype)`` either way, so
+    the numbers are the same; the copy saves a cast of every weight on
+    every step. Returns ``params`` itself when nothing needs a cast."""
+    cdt = cfg.dtype("compute")
+    state = params.state_dict()
+    cast = {name for name, t in state.items()
+            if not name.endswith("scale") and t.dtype != cdt}
+    if not cast:
+        return params
+    out = LM(cfg, device="meta")
+    out.load_state_dict({name: t.to(cdt) if name in cast else t
+                         for name, t in state.items()}, assign=True)
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               device=None) -> List[Cache]:
+    return init_stack_cache(cfg, cfg.num_layers, batch, cache_len,
+                            cfg.dtype("compute"), resolve_device(device))
+
+
+def prefill(
+    cfg: ArchConfig,
+    params: LM,
+    batch: Dict,
+    cache: List[Cache],
+    window_override: Optional[int] = None,
+) -> Tuple[torch.Tensor, List[Cache]]:
+    """Run the prompt through the stack, filling the (empty) cache; the
+    attention goes through the flash kernel. Returns (last-position
+    logits (B, 1, V), cache)."""
+    x = params.embed.embed(batch["tokens"], cfg.dtype("compute"))
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    windows = layer_windows(cfg, cfg.num_layers, window_override)
+    x, cache = apply_stack(params.layers, x, positions, windows, cache=cache,
+                           prefill=True)
+    x = params.final_norm(x[:, -1:])
+    return params.logits(x), cache
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: LM,
+    tokens: torch.Tensor,           # (B, 1)
+    pos: int,                       # absolute position
+    cache: List[Cache],
+    window_override: Optional[int] = None,
+) -> Tuple[torch.Tensor, List[Cache]]:
+    """One decode step: (B, 1) tokens -> (B, 1, V) logits, cache updated
+    in place."""
+    x = params.embed.embed(tokens, cfg.dtype("compute"))
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    windows = layer_windows(cfg, cfg.num_layers, window_override)
+    x, cache = apply_stack(params.layers, x, positions, windows, cache=cache)
+    x = params.final_norm(x)
+    return params.logits(x), cache

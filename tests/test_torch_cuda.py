@@ -1,15 +1,23 @@
-"""The port's CUDA kernels on the card: each against its plain torch
-version bit for bit, and the offer path on a CUDA ledger launching both
-and deciding as the CPU run does. Skipped where there is no card; on one,
+"""The port's CUDA kernels on the card: the offer path's two kernels
+against their plain torch versions bit for bit, and the model's two
+(rmsnorm, flash attention) within their tolerances; the offer path on a
+CUDA ledger launching both of its kernels and deciding as the CPU run
+does; the reduced serving path launching both model kernels and
+answering as the CPU run does. Skipped where there is no card; on one,
 run ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``."""
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.kernels import minplus, pricing
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention, minplus, pricing, rmsnorm
+from repro_torch.models import build_model
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +73,71 @@ def test_offer_path_launches_both_kernels_and_matches_cpu(cuda):
     assert [r.admitted for r in gpu.records] == \
         [r.admitted for r in cpu.records]
     assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", [(4096, 3072), (4, 3072), (1000, 128),
+                                 (96, 512), (3, 50)])
+def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
+    gen = torch.Generator().manual_seed(N + d)
+    x = (torch.randn((N, d), generator=gen) * 3).to(dtype).to(cuda)
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    got = rmsnorm.rmsnorm_cuda(x, scale)
+    want = rmsnorm.rmsnorm_torch(x, scale)
+    assert got.dtype == dtype
+    tol = dict(rtol=8e-3, atol=1e-6) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S_q,S_k,H,KV,D,causal,window", [
+    (2, 256, 256, 4, 4, 256, True, 0),
+    (2, 512, 512, 64, 8, 128, True, 0),
+    (1, 200, 200, 2, 1, 64, True, 0),
+    (1, 128, 256, 2, 2, 32, False, 0),
+    (1, 256, 256, 2, 2, 32, True, 32),
+    (1, 256, 256, 2, 2, 32, True, 128),
+    (1, 300, 100, 2, 2, 48, False, 8),
+])
+def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
+                                    window, dtype):
+    gen = torch.Generator().manual_seed(S_q * H + D)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(cuda)
+               for shape in ((B, S_q, H, D), (B, S_k, KV, D),
+                             (B, S_k, KV, D)))
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window)
+    want = flash_attention.flash_attention_torch(q, k, v, causal, window)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_kernel_window_one_is_v(cuda):
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((1, 128, 1, 16), generator=gen).to(cuda)
+               for _ in range(3))
+    got = flash_attention.flash_attention_cuda(q * 3, k * 3, v, True, 1)
+    torch.testing.assert_close(got, v, rtol=1e-5, atol=1e-5)
+
+
+def test_reduced_serving_launches_both_kernels_and_matches_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gemma-7b", reduced=True)
+    params = build_model(cfg).init(0, cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 24).astype(np.int32),
+                    max_new_tokens=12) for i in range(8)]
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    gpu = ServeEngine(cfg, params, max_batch=4, cache_len=128).serve(reqs)
+    forwards = 2 * 12              # two batches: one prefill, 11 decodes
+    assert rmsnorm.LAUNCHES == forwards * (2 * cfg.num_layers + 1)
+    assert flash_attention.LAUNCHES == 2 * cfg.num_layers
+    cpu = ServeEngine(cfg, copy.deepcopy(params).to("cpu"), max_batch=4,
+                      cache_len=128).serve(reqs)
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.tokens, c.tokens)

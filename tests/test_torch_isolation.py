@@ -24,7 +24,16 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.kernels.pricing" in mods
+    for name in ("repro_torch.kernels.pricing",
+                 "repro_torch.kernels.rmsnorm",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.ops",
+                 "repro_torch.configs", "repro_torch.configs.gemma_7b",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.blocks", "repro_torch.models.lm",
+                 "repro_torch.models.api", "repro_torch.serve.engine",
+                 "repro_torch.launch.serve", "repro_torch.convert"):
+        assert name in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
