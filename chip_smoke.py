@@ -4,7 +4,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+It builds the five CUDA sources from ``src/repro_torch/kernels/csrc``
 with nvcc, one nvcc per source in parallel, and drives the port's two
 paths:
 
@@ -13,12 +13,14 @@ paths:
     Fig. 6 point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
     workload_scale=0.3, batch=(50,200), quanta=20, seed 0) on the card
     and on the CPU, requiring identical decisions;
-  * the serving path: the rmsnorm and flash-attention kernels against
-    their plain versions on the card, then Gemma-7B at full width and
+  * the serving path: the rmsnorm and flash-attention kernels (bf16 on
+    the tensor cores, float32 on the CUDA cores) against their plain
+    versions on the card, then Gemma-7B at full width and
     full depth (28 layers, random weights from seed 0, float32 params,
     bfloat16 compute) serving 8 requests of 1024 prompt tokens and 32
     new tokens, max_batch 4, greedy, through ``ServeEngine.serve``, with
-    exact launch counts of both kernels; then a 2-layer float32 cut of
+    exact launch counts of both kernels and every prefill's attention on
+    the tensor-core kernel; then a 2-layer float32 cut of
     the full-width model served on the card and on the CPU from the same
     weights, requiring identical greedy tokens.
 
@@ -313,6 +315,8 @@ def check_model_kernels(rmsnorm, flash) -> dict:
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
         (1, 512, 512, 4, 4, 128, True, 32, ("bf16", "f32")),
         (1, 512, 512, 4, 4, 128, True, 128, ("bf16", "f32")),
+        (1, 200, 200, 4, 2, 80, True, 0, ("bf16",)),   # D % 16 != 0
+        (1, 64, 64, 2, 2, 20, True, 0, ("bf16",)),     # D % 8 != 0
     ]
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
     for B, S_q, S_k, H, KV, D, causal, window, names in cases:
@@ -414,12 +418,21 @@ def serve_full_width(rmsnorm, flash) -> dict:
         t1 = time.perf_counter()
         engine.serve(reqs)
         prof_wall = time.perf_counter() - t1
-    by_kernel = {}
+    by_kernel, flash_calls = {}, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us > 0:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e6
+        if "flash_fwd_kernel" in ev.key:
+            flash_calls[ev.key] = flash_calls.get(ev.key, 0) + ev.count
+    # every prefill's attention ran on the tensor-core kernel
+    if len(flash_calls) != 1 or \
+            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or \
+            sum(flash_calls.values()) != want["flash_attention"]:
+        raise AssertionError(f"profiled serving run's attention kernels "
+                             f"{flash_calls}, want {want['flash_attention']}"
+                             f" launches of flash_fwd_kernel_tc")
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
 
@@ -428,7 +441,8 @@ def serve_full_width(rmsnorm, flash) -> dict:
     out = dict(init_s=init_s, wall=wall, tokens=n_tok,
                tok_per_s=n_tok / wall, per_batch=per_batch,
                setup_peak_gb=setup_peak / 1e9, serve_peak_gb=serve_peak / 1e9,
-               launches=launches, prof_wall=prof_wall, busy=busy,
+               launches=launches, flash_calls=flash_calls,
+               prof_wall=prof_wall, busy=busy,
                idle=1 - busy / prof_wall, top=top,
                rmsnorm_s=sum(t for k, t in by_kernel.items()
                              if "rmsnorm_kernel" in k),
@@ -502,27 +516,37 @@ def rmsnorm_numbers(rmsnorm, x, scale) -> dict:
 
 
 def flash_numbers(flash, q, k, v) -> dict:
+    """The attention kernel's route for q's dtype at (B, S, H, D) causal
+    with k.shape[2] kv heads: times, bound, and the achieved TFLOP/s and
+    share of the bound on the kernel's device time."""
     B, S, H, D = q.shape
+    KV = k.shape[2]
     pairs = int(flash.allowed(S, S, True, 0).sum())
     ops = 4 * B * H * D * pairs
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q,k,v,o
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
+    bound = max(t_bytes, t_ops)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    gqa = {"enable_gqa": True} if KV != H else {}
+    device_ms = _device_ms(lambda: flash.flash_attention_cuda(q, k, v),
+                           "flash_fwd_kernel", reps=10)
     return {
-        "shape": [B, S, H, D], "dtype": str(q.dtype).replace("torch.", ""),
+        "shape": [B, S, H, D], "kv_heads": KV,
+        "dtype": str(q.dtype).replace("torch.", ""),
         "ms": _time_ms(lambda: flash.flash_attention_cuda(q, k, v),
                        reps=20, warmup=3),
-        "device_ms": _device_ms(lambda: flash.flash_attention_cuda(q, k, v),
-                                "flash_fwd_kernel", reps=10),
+        "device_ms": device_ms,
         "plain_ms": _time_ms(lambda: flash.flash_attention_torch(q, k, v),
                              reps=10, warmup=2),
-        "bound_ms": max(t_bytes, t_ops),
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "tflops": ops / device_ms / 1e9 if device_ms else None,
+        "bound_share": bound / device_ms if device_ms else None,
         "library_ms": _time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps=20, warmup=3),
+                qt, kt, vt, is_causal=True, **gqa), reps=20, warmup=3),
     }
 
 
@@ -553,7 +577,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(w in line for w in ("registers", "spill", "entry")) \
+                    or "error" in line.lower():
                 print(f"  ptxas {name}: {line.strip()}")
 
     # 3. kernels against their plain versions on the card
@@ -624,7 +649,8 @@ def main() -> int:
           f"bf16 copy), {sv['serve_peak_gb']:.2f} GB while serving")
     print(f"serving device busy {sv['busy']:.4f} s of a profiled "
           f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
-          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s; "
+          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s "
+          f"(calls {sv['flash_calls']}); "
           f"top kernels by device time: " + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
 
@@ -646,7 +672,21 @@ def main() -> int:
     print(f"rmsnorm at the decode shape (4, 3072) bf16: {rdec}")
     q, k, v = (torch.randn((4, 1024, 16, 256), generator=gen)
                .to(torch.bfloat16).cuda() for _ in range(3))
-    fnum = flash_numbers(flash, q, k, v)
+    fnum = flash_numbers(flash, q, k, v)       # Gemma-7B prefill, bf16
+    fnum["float32"] = flash_numbers(flash, q.float(), k.float(), v.float())
+    del q, k, v
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+               for shape in ((2, 1024, 64, 128), (2, 1024, 8, 128),
+                             (2, 1024, 8, 128)))
+    fnum["qwen3_32b"] = flash_numbers(flash, q, k, v)
+    for label, f in (("bf16, tensor cores", fnum),
+                     ("float32, CUDA cores", fnum["float32"]),
+                     ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"])):
+        print(f"flash {f['shape']} kv_heads {f['kv_heads']} causal "
+              f"({label}): device {f['device_ms']} ms, events {f['ms']} ms,"
+              f" {f['tflops']} TFLOP/s, {f['bound_share']} of the "
+              f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
+              f"{f['plain_ms']} ms, library {f['library_ms']} ms")
     kernels = [
         {"name": "price_bundle", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/price_bundle.cu",
@@ -664,7 +704,8 @@ def main() -> int:
          "launches": sv["launches"]["rmsnorm"],
          "max_abs_err": merr["rmsnorm"], **rnum},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+         "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",
          "launches": sv["launches"]["flash_attention"],
          "max_abs_err": merr["flash_attention"], **fnum},

@@ -1,7 +1,13 @@
-// Forward flash attention over the model's (B, S, H, D) layout.
+// Forward flash attention for float32 q, k, v over the model's (B, S, H, D)
+// layout, on the CUDA cores.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel.
-// That kernel ran a sequential (B*H, n_q, n_k) grid and carried the running
+// Replaces the float32 route of the TPU kernel
+// src/repro/kernels/flash_attention.py::_flash_kernel; bfloat16 inputs take
+// the tensor-core kernel of flash_attention_tc.cu. The tensor cores take
+// float32 only as TF32 (about three decimal digits), which would not hold
+// the float32 tolerance of 2e-5 against the plain version.
+//
+// The TPU kernel ran a sequential (B*H, n_q, n_k) grid and carried the running
 // max, denominator and accumulator in VMEM scratch from one k block to the
 // next. Blocks on the H100 run in parallel and in no order, so here one
 // block owns one (batch*head, 64-row query tile) and walks the key tiles in
@@ -28,20 +34,16 @@
 //     gets the same uniform average.
 //
 // What bounds it on the H100: at the Gemma-7B prefill shape (4, 1024, 16,
-// 256) in bf16 the two bounds are close. It must move 134 MB of q, k, v
-// and o (40 us at 3.35 TB/s) and do 4*B*H*D*sum(allowed pairs) = 34 GFLOP
-// (35 us on the bf16 tensor cores' 989 TFLOP/s), so bytes bound it. This
-// first kernel keeps the reference's float32 arithmetic on the CUDA cores
-// (67 TFLOP/s at most: 0.51 ms for the same work) and is held back further
-// by shared-memory reads: tensor cores (wgmma), TMA and a producer warp
-// are later work. What the design does:
+// 256) in float32 it must move 268 MB of q, k, v and o (80 us at
+// 3.35 TB/s) and do 4*B*H*D*sum(allowed pairs) = 34.4 GFLOP, 0.51 ms at
+// the CUDA cores' float32 peak of 67 TFLOP/s, so operations bound it. The
+// kernel is held back further by shared-memory reads. What the design does:
 // the q tile (64 rows) and each key and value tile (32 rows) are staged
 // once in shared memory as float32, rows padded by one word so the four
 // threads of a query row and the eight rows of a warp read distinct banks;
 // each thread keeps 8 scores and D/4 accumulator columns in registers, and
 // a row's max and sum are two warp shuffles. D=256 needs 137 KB of shared
 // memory, above the 48 KB default, so the launch opts in first.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,13 +63,7 @@ __host__ __device__ constexpr size_t smem_bytes(int D) {
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // NACC: accumulator columns per thread, a power of two >= D / 4.
 template <typename T, int NACC>
@@ -248,7 +244,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, o: (B, S_q, H, D); k, v: (B, S_k, KV, D); contiguous, one dtype.
+// q, o: (B, S_q, H, D); k, v: (B, S_k, KV, D); contiguous float32.
 // H % KV == 0, 1 <= D <= 256, B * H <= 65535 (checked by the caller).
 // window > 0 keeps keys k > q - window; causal != 0 keeps k <= q.
 // Launches on `stream`; returns cudaGetLastError().
@@ -259,13 +255,4 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           int window, void* stream) {
   return launch<float>(q, k, v, o, B, S_q, S_k, H, KV, D, sm_scale, causal,
                        window, stream);
-}
-
-extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int S_q, int S_k, int H, int KV,
-                                           int D, float sm_scale, int causal,
-                                           int window, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, S_q, S_k, H, KV, D, sm_scale,
-                               causal, window, stream);
 }

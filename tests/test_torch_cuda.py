@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the offer path's two kernels
 against their plain torch versions bit for bit, and the model's two
-(rmsnorm, flash attention) within their tolerances; the offer path on a
+(rmsnorm, flash attention on both routes: bf16 on the tensor cores,
+float32 on the CUDA cores) within their tolerances; the offer path on a
 CUDA ledger launching both of its kernels and deciding as the CPU run
 does; the reduced serving path launching both model kernels and
 answering as the CPU run does. Skipped where there is no card; on one,
@@ -104,6 +105,9 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     (1, 256, 256, 2, 2, 32, True, 32),
     (1, 256, 256, 2, 2, 32, True, 128),
     (1, 300, 100, 2, 2, 48, False, 8),
+    (1, 200, 200, 4, 2, 80, True, 0),      # D no multiple of 16
+    (1, 64, 64, 2, 2, 20, True, 0),        # D no multiple of 8
+    (1, 512, 512, 16, 16, 256, True, 0),   # Gemma-7B's heads
 ])
 def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
                                     window, dtype):
@@ -114,6 +118,48 @@ def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
     got = flash_attention.flash_attention_cuda(q, k, v, causal, window)
     want = flash_attention.flash_attention_torch(q, k, v, causal, window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_kernel_unaligned_inputs_match_plain(cuda):
+    """q, k, v 2 bytes off a 16-byte boundary: the bf16 kernel takes its
+    element-wise loader."""
+    gen = torch.Generator().manual_seed(8)
+    shape = (1, 192, 4, 64)
+    n = int(np.prod(shape))
+    q, k, v = (torch.randn((n + 1,), generator=gen).to(torch.bfloat16)
+               .to(cuda)[1:].view(shape) for _ in range(3))
+    assert not flash_attention.vector_loads(64, q, k, v)
+    got = flash_attention.flash_attention_cuda(q, k, v, True, 0)
+    want = flash_attention.flash_attention_torch(q, k, v, True, 0)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic(cuda, dtype):
+    """No atomics and a fixed order of sums: two launches agree bit for
+    bit."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn((2, 512, 16, 256), generator=gen).to(dtype)
+               .to(cuda) for _ in range(3))
+    first = flash_attention.flash_attention_cuda(q, k, v)
+    second = flash_attention.flash_attention_cuda(q, k, v)
+    _equal(first.float(), second.float())
+
+
+@pytest.mark.parametrize("dtype,tensor_cores", [(torch.bfloat16, True),
+                                                (torch.float32, False)])
+def test_flash_route_by_dtype(cuda, dtype, tensor_cores):
+    """bf16 launches the tensor-core kernel, float32 the CUDA-core one."""
+    from torch.profiler import ProfilerActivity, profile
+    q = torch.randn((1, 128, 2, 64), device=cuda).to(dtype)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention.flash_attention_cuda(q, q, q)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if "flash_fwd_kernel" in ev.key]
+    assert len(names) == 1, names
+    assert ("flash_fwd_kernel_tc" in names[0]) == tensor_cores
 
 
 def test_flash_kernel_window_one_is_v(cuda):

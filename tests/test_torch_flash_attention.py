@@ -18,11 +18,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import grouped_attention as j_grouped
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (
     allowed,
     flash_attention_cuda,
     flash_attention_torch,
+    padded_head_dim,
+    vector_loads,
 )
 
 _NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
@@ -157,3 +160,108 @@ def test_kernel_refuses_what_it_does_not_take():
                               torch.ones((1, 8, 3, 16)))
     with pytest.raises(TypeError):
         flash_attention_cuda(q.double(), q.double(), q.double())
+
+
+def _bf16(a):
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16) \
+        .astype(np.float32)
+
+
+def _tc_arithmetic(q, k, v, BK):
+    """The tensor-core kernel's arithmetic on (BH, S, D) bf16 values,
+    causal: float32 scores in 64-row query tiles and BK-key tiles, the
+    online softmax in the log2 domain, p rounded to bf16 before p.v, the
+    output rounded once to bf16."""
+    BH, S, D = q.shape
+    scale_log2 = np.float32(np.log2(np.e) / np.sqrt(D))
+    out = np.empty_like(q)
+    for q0 in range(0, S, 64):
+        qs = q[:, q0:q0 + 64]
+        rows = np.arange(q0, q0 + qs.shape[1])[:, None]
+        m = np.full(qs.shape[:2], -1e30, np.float32)
+        l = np.zeros(qs.shape[:2], np.float32)
+        acc = np.zeros(qs.shape, np.float32)
+        for kt in range(0, min(S, q0 + 64), BK):
+            s = np.einsum("bqd,bkd->bqk", qs, k[:, kt:kt + BK]) * scale_log2
+            keys = np.arange(kt, min(kt + BK, S))[None, :]
+            s = np.where(keys <= rows, s, np.float32(-1e30))
+            m_new = np.maximum(m, s.max(-1))
+            alpha = np.exp2(m - m_new)
+            p = np.exp2(s - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + np.einsum(
+                "bqk,bkd->bqd", _bf16(p), v[:, kt:kt + BK])
+            m = m_new
+        out[:, q0:q0 + 64] = _bf16(acc / np.maximum(l, 1e-30)[..., None])
+    return out
+
+
+@pytest.mark.parametrize("H,D,BK", [(2, 256, 32), (4, 128, 64)])
+def test_tensor_core_rounding_matches_pallas(H, D, BK):
+    """The bf16 route rounds p to bf16 before p.v, as the MXU's one bf16
+    pass does; that arithmetic stays within the bf16 tolerance of the
+    Pallas kernel on the same inputs."""
+    q, k, v = _qkv(17 + D, 1, 512, 512, H, H, D, "bfloat16")
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, interpret=True)
+    got = _tc_arithmetic(*(_bh(np.asarray(a, np.float32)) for a in (q, k, v)),
+                         BK)
+    got = got.reshape(1, H, 512, D).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **_tol("bfloat16"))
+
+
+def test_padded_head_dim_buckets():
+    for D in range(1, 257):
+        want = 64 if D <= 64 else 128 if D <= 128 else 256
+        assert padded_head_dim(D) == want, D
+    for D in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            padded_head_dim(D)
+
+
+def test_vector_loads_need_whole_chunks_and_alignment():
+    buf = torch.zeros(4096, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    aligned, off = buf[:1024], buf[1:1025]
+    assert vector_loads(256, aligned, aligned, aligned)
+    assert vector_loads(8, aligned)
+    assert not vector_loads(20, aligned)        # rows of 40 bytes
+    assert not vector_loads(80 + 4, aligned)
+    assert not vector_loads(256, aligned, off)  # one pointer 2 bytes off
+    assert vector_loads(256, buf[8:1032])       # 16 bytes in
+
+
+@pytest.mark.parametrize("dtype,source", [
+    (torch.bfloat16, "flash_attention_tc"),
+    (torch.float32, "flash_attention"),
+])
+def test_each_dtype_has_one_kernel_and_no_other(monkeypatch, dtype, source):
+    """A route whose source fails to build raises; the wrapper asks for no
+    other source, so neither kernel nor the plain version stands in."""
+    asked = []
+
+    def failing_load(name):
+        asked.append(name)
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", failing_load)
+    with pytest.raises(RuntimeError, match=source):
+        fa._entry(dtype)
+    assert asked == [source]
+    assert fa.ROUTES[dtype][0] == source
+    assert source in _build.SOURCES
+
+
+def test_bf16_wrapper_refuses_what_it_does_not_take():
+    """bf16 on the CPU, mixed dtypes and float16 raise before any launch;
+    none is handed to the plain version or the float32 kernel."""
+    q = torch.ones((1, 8, 2, 16), dtype=torch.bfloat16)
+    launches = fa.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, q.float(), q)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+    assert fa.LAUNCHES == launches
