@@ -19,14 +19,17 @@ paths:
     full depth (28 layers, random weights from seed 0, float32 params,
     bfloat16 compute) serving 8 requests of 1024 prompt tokens and 32
     new tokens, max_batch 4, greedy, through ``ServeEngine.serve``, with
-    exact launch counts of both kernels and every prefill's attention on
-    the tensor-core kernel; then a 2-layer float32 cut of
-    the full-width model served on the card and on the CPU from the same
-    weights, requiring identical greedy tokens.
+    exact launch counts of both kernels, every prefill's attention on
+    the tensor-core kernel, and the profiled run's rmsnorm device time
+    split into its prefill-shape and decode-shape launches; then a
+    2-layer float32 cut of the full-width model served on the card and
+    on the CPU from the same weights, requiring identical greedy tokens.
 
 It prints each path's numbers, the card's name and power limit, one JSON
-line with each kernel's launches, error, times and bound, and as its
-last line ``{"ok": true, "device": {...}}``. Every phase raises on
+line with each kernel's launches, error, times and bound (rmsnorm at the
+prefill shape (4096, 3072) and, nested, the decode shape (4, 3072); flash
+attention on both routes), and as its last line
+``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
 """
@@ -298,7 +301,8 @@ def check_model_kernels(rmsnorm, flash) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
     err = {"rmsnorm": 0.0, "flash_attention": 0.0}
-    for N, d in [(4096, 3072), (4, 3072), (1024 * 64, 128), (96, 512)]:
+    for N, d in [(4096, 3072), (4, 3072), (1024 * 64, 128), (96, 512),
+                 (16, 12288), (5, 50), (300, 1)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -315,8 +319,9 @@ def check_model_kernels(rmsnorm, flash) -> dict:
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
         (1, 512, 512, 4, 4, 128, True, 32, ("bf16", "f32")),
         (1, 512, 512, 4, 4, 128, True, 128, ("bf16", "f32")),
-        (1, 200, 200, 4, 2, 80, True, 0, ("bf16",)),   # D % 16 != 0
-        (1, 64, 64, 2, 2, 20, True, 0, ("bf16",)),     # D % 8 != 0
+        (1, 200, 200, 4, 2, 80, True, 0, ("bf16", "f32")),  # D % 16 != 0
+        (1, 64, 64, 2, 2, 20, True, 0, ("bf16", "f32")),    # D % 8 != 0
+        (1, 130, 130, 2, 1, 50, True, 0, ("bf16", "f32")),  # D % 4 != 0
     ]
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
     for B, S_q, S_k, H, KV, D, causal, window, names in cases:
@@ -332,6 +337,17 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                 flash.flash_attention_torch(q, k, v, causal, window),
                 f"flash {(B, S_q, S_k, H, KV, D)} causal={causal} "
                 f"window={window} {name}", **tol))
+    # float32 q, k, v 4 bytes off a 16-byte boundary: element-wise loader
+    shape = (1, 160, 4, 256)
+    n = int(np.prod(shape))
+    q, k, v = (torch.randn((n + 1,), generator=gen).to(dev)[1:].view(shape)
+               for _ in range(3))
+    if flash.vector_loads(256, q, k, v):
+        raise AssertionError("offset float32 inputs took 16-byte loads")
+    err["flash_attention"] = max(err["flash_attention"], _max_err(
+        flash.flash_attention_cuda(q, k, v),
+        flash.flash_attention_torch(q, k, v), "flash f32 unaligned",
+        rtol=2e-5, atol=2e-5))
     # window 1: every query attends to itself alone, so out == v
     q, k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(dev) * 3
                for _ in range(3))
@@ -418,6 +434,7 @@ def serve_full_width(rmsnorm, flash) -> dict:
         t1 = time.perf_counter()
         engine.serve(reqs)
         prof_wall = time.perf_counter() - t1
+    norm_split = rmsnorm_by_shape(prof, batches, cfg.num_layers)
     by_kernel, flash_calls = {}, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -446,11 +463,35 @@ def serve_full_width(rmsnorm, flash) -> dict:
                idle=1 - busy / prof_wall, top=top,
                rmsnorm_s=sum(t for k, t in by_kernel.items()
                              if "rmsnorm_kernel" in k),
+               rmsnorm_split=norm_split,
                flash_s=sum(t for k, t in by_kernel.items()
                            if "flash_fwd_kernel" in k))
     del engine
     torch.cuda.empty_cache()
     return out
+
+
+def rmsnorm_by_shape(prof, batches: int, layers: int):
+    """The profiled serving run's rmsnorm device time split by launch
+    shape. The engine fixes the order of the launches, and the exact
+    launch count holds it: each batch's prefill runs 2 * layers norms at
+    (max_batch * prompt_len, d), then its final norm and every decode
+    forward run at (max_batch, d). The launches, in device order, are
+    split so; None when the profiler lost a launch."""
+    evs = sorted((ev for ev in prof.events()
+                  if "rmsnorm_kernel" in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    per_batch, rem = divmod(len(evs), batches)
+    if rem or not evs:
+        return None
+    out = {"prefill_shape": [0, 0.0], "decode_shape": [0, 0.0]}
+    for i, ev in enumerate(evs):
+        side = out["prefill_shape" if i % per_batch < 2 * layers
+                   else "decode_shape"]
+        side[0] += 1
+        side[1] += (ev.time_range.end - ev.time_range.start) / 1e6
+    return {k: {"launches": n, "device_s": t, "us_per_launch": t / n * 1e6}
+            for k, (n, t) in out.items()}
 
 
 def parity_cuda_cpu() -> dict:
@@ -654,6 +695,15 @@ def main() -> int:
           f"top kernels by device time: " + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
 
+    split = sv["rmsnorm_split"]
+    rows = {"prefill_shape": p["max_batch"] * p["prompt_len"],
+            "decode_shape": p["max_batch"]}
+    print("serving rmsnorm device time by launch shape: " + (
+        "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
+                  f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
+                  for k, v in split.items())
+        if split else "not measured (the profiler lost launches)"))
+
     # 7. serving path: 2-layer float32 cut, cuda against cpu
     pa = parity_cuda_cpu()
     print(f"parity (2-layer full-width f32, cuda vs cpu): identical greedy "
@@ -669,7 +719,11 @@ def main() -> int:
     x = (torch.randn((4096, 3072), generator=gen) * 3).to(torch.bfloat16)
     rnum = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
     rdec = rmsnorm_numbers(rmsnorm, x[:4].cuda(), torch.ones(3072).cuda())
-    print(f"rmsnorm at the decode shape (4, 3072) bf16: {rdec}")
+    for f in (rnum, rdec):
+        print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
+              f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
+              f"bound; plain {f['plain_ms']} ms, F.rms_norm "
+              f"{f['library_ms']} ms")
     q, k, v = (torch.randn((4, 1024, 16, 256), generator=gen)
                .to(torch.bfloat16).cuda() for _ in range(3))
     fnum = flash_numbers(flash, q, k, v)       # Gemma-7B prefill, bf16
@@ -702,7 +756,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:35",
          "launches": sv["launches"]["rmsnorm"],
-         "max_abs_err": merr["rmsnorm"], **rnum},
+         "max_abs_err": merr["rmsnorm"], **rnum, "decode_shape": rdec,
+         "serving_split": sv["rmsnorm_split"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",

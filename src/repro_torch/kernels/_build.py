@@ -26,6 +26,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = (
@@ -117,6 +119,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream on ``t``'s device,
+    as a C entry point takes it (one call into torch, without the
+    ``torch.cuda.Stream`` object that ``current_stream`` builds)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(status: int, what: str) -> None:

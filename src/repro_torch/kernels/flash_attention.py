@@ -11,13 +11,15 @@ output is rounded once into q's dtype. Two implementations:
 
   * ``flash_attention_cuda``  — the hand-written CUDA kernels replacing
     the JAX package's Pallas ``_flash_kernel``: blockwise online softmax,
-    one block per (batch*head, 64-row query tile). The kernel is chosen
+    one block per (64-row query tile, batch*head). The kernel is chosen
     once by dtype: bfloat16 runs on the tensor cores
     (``csrc/flash_attention_tc.cu``, bf16 ``mma.sync`` products with
     float32 accumulators), float32 on the CUDA cores
-    (``csrc/flash_attention.cu``), since the tensor cores take float32
-    only as TF32. A call that fails to build or launch raises; neither
-    route stands in for the other;
+    (``csrc/flash_attention.cu``, 4 x 4 register tiles of float32 FMAs),
+    since the tensor cores take float32 only as TF32. Both take the
+    padded width and the loader that ``padded_head_dim`` and
+    ``vector_loads`` choose. A call that fails to build or launch raises;
+    neither route stands in for the other;
   * ``flash_attention_torch`` — its plain torch version, the whole
     softmax at once as ``reference_attention`` computes it, with the
     window mask and the grouping added.
@@ -46,8 +48,13 @@ LAUNCHES = 0
 ROUTES = {torch.float32: ("flash_attention", "flash_attention_f32_launch"),
           torch.bfloat16: ("flash_attention_tc",
                            "flash_attention_bf16_launch")}
-#: padded head widths the tensor-core kernel is instantiated for
+#: padded head widths both kernels are instantiated for
 HEAD_DIM_BUCKETS = (64, 128, 256)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             + [ctypes.c_int] * 2)           # head_dim_pad, vec16
+#: C entry points resolved so far, by dtype
+_FNS: dict = {}
 
 
 def allowed(S_q: int, S_k: int, causal: bool, window: int,
@@ -64,8 +71,8 @@ def allowed(S_q: int, S_k: int, causal: bool, window: int,
 
 
 def padded_head_dim(D: int) -> int:
-    """The tensor-core kernel's width for head_dim D: the smallest bucket
-    that holds it; the padded columns are zero-filled."""
+    """The kernels' width for head_dim D: the smallest bucket that holds
+    it; the padded columns are zero-filled."""
     for width in HEAD_DIM_BUCKETS:
         if 1 <= D <= width:
             return width
@@ -74,11 +81,12 @@ def padded_head_dim(D: int) -> int:
 
 
 def vector_loads(D: int, *tensors: torch.Tensor) -> bool:
-    """Whether the tensor-core kernel may move rows in 16-byte copies:
-    a row of D bf16 values is a whole number of 16 bytes and every
-    tensor's first element is 16-byte aligned. Otherwise the same kernel
-    loads element by element."""
-    return D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    """Whether the kernel for the tensors' dtype may move rows in 16-byte
+    copies: a row of D values (8 bf16 or 4 float32 to a copy) is a whole
+    number of 16 bytes and every tensor's first element is 16-byte
+    aligned. Otherwise the same kernel loads element by element."""
+    return D * tensors[0].element_size() % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -133,26 +141,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 0, got {window}")
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S_q, S_k, H, KV, D, sm_scale, int(causal),
-            min(int(window), 2**31 - 1),
-            torch.cuda.current_stream(q.device).cuda_stream]
-    if q.dtype == torch.bfloat16:
-        args += [padded_head_dim(D), int(vector_loads(D, q, k, v, o))]
-    status = _entry(q.dtype)(*args)
+    status = _entry(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, S_q, S_k, H, KV, D, sm_scale, int(causal),
+        min(int(window), 2**31 - 1), _build.stream_of(q),
+        padded_head_dim(D), int(vector_loads(D, q, k, v, o)))
     _build.check(status, f"flash_attention kernel ({ROUTES[q.dtype][0]})")
     LAUNCHES += 1
     return o
 
 
 def _entry(dtype: torch.dtype):
-    """The C entry point of ``dtype``'s kernel; raises if its source does
-    not build or load."""
-    source, symbol = ROUTES[dtype]
-    fn = getattr(_build.load(source), symbol)
-    choices = 2 if dtype == torch.bfloat16 else 0  # head_dim_pad, vec16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p] + [ctypes.c_int] * choices)
-    fn.restype = ctypes.c_int
+    """The C entry point of ``dtype``'s kernel, resolved once; raises if
+    its source does not build or load."""
+    fn = _FNS.get(dtype)
+    if fn is None:
+        source, symbol = ROUTES[dtype]
+        fn = getattr(_build.load(source), symbol)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[dtype] = fn
     return fn

@@ -7,8 +7,9 @@ float32 whatever its dtype (the model keeps it in the float32 parameter
 dtype while it computes in bfloat16). Two implementations:
 
   * ``rmsnorm_cuda``  — the hand-written CUDA kernel
-    (``csrc/rmsnorm.cu``, one warp per row), replacing the JAX package's
-    Pallas ``_rmsnorm_kernel``;
+    (``csrc/rmsnorm.cu``: each row read once in 16-byte chunks held in
+    registers, a block per row wider than 32 chunks), replacing the JAX
+    package's Pallas ``_rmsnorm_kernel``;
   * ``rmsnorm_torch`` — its plain torch version, the reference's
     (``reference_rmsnorm``) arithmetic op for op.
 
@@ -19,6 +20,8 @@ raises). ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +32,54 @@ LAUNCHES = 0
 
 _ENTRIES = {torch.float32: "rmsnorm_f32_launch",
             torch.bfloat16: "rmsnorm_bf16_launch"}
+_ARGTYPES = ([ctypes.c_void_p] * 3
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p] + [ctypes.c_int] * 4)
+#: C entry points resolved so far, by dtype
+_FNS: dict = {}
+
+#: the widest row the kernel takes, on every path
+MAX_D = 16384
+MAX_THREADS = 1024
+#: block size when a row takes at most a warp
+NARROW_THREADS = 256
+#: chunks a thread may hold, by elements per chunk (the kernel's
+#: instantiations: 16-byte chunks of 8 bf16 or 4 float32, or single
+#: elements); each path covers rows up to ``MAX_D``
+CHUNKS_PER_THREAD = {8: (1, 2), 4: (1, 2, 4), 1: (1, 2, 4, 8, 16)}
+
+
+class Layout(NamedTuple):
+    """How the kernel lays a row out: block size, threads per row,
+    chunks per thread and elements per chunk (16 bytes' worth, or 1)."""
+    threads: int
+    tpr: int
+    nch: int
+    width: int
+
+
+@functools.lru_cache(maxsize=None)
+def rmsnorm_layout(d: int, dtype: torch.dtype, aligned: bool) -> Layout:
+    """The kernel's layout for rows of d ``dtype`` values. 16-byte chunks
+    when a row is a whole number of them and every pointer is 16-byte
+    aligned (``aligned``), else one element per chunk. A thread takes
+    the fewest chunks that let at most 1024 threads cover the row; a row
+    of at most 32 threads' work takes a power-of-two share of a warp in a
+    256-thread block, a wider row a block of its own in whole warps."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"the rmsnorm kernel takes 1 <= d <= {MAX_D}, "
+                         f"got {d}")
+    vec = 16 // dtype.itemsize
+    width = vec if aligned and d % vec == 0 else 1
+    chunks = d // width
+    nch = next(n for n in CHUNKS_PER_THREAD[width]
+               if n * MAX_THREADS >= chunks)
+    need = -(-chunks // nch)               # threads the row needs
+    if need <= 32:
+        tpr = 1 << (need - 1).bit_length()
+        return Layout(NARROW_THREADS, tpr, nch, width)
+    tpr = -(-need // 32) * 32
+    return Layout(tpr, tpr, nch, width)
 
 
 def rmsnorm_torch(x: torch.Tensor, scale: torch.Tensor,
@@ -47,7 +98,7 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.dtype not in _ENTRIES:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if x.device.type != "cuda" or scale.device != x.device:
+    if not x.is_cuda or scale.device != x.device:
         raise ValueError(f"the CUDA kernel needs x and scale on one CUDA "
                          f"device, got {x.device} and {scale.device}")
     if not x.is_contiguous():
@@ -60,20 +111,27 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     synchronizing."""
     global LAUNCHES
     _check(x, scale)
-    scale = scale.to(torch.float32).contiguous()
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
     y = torch.empty_like(x)
-    fn = _entry(x.dtype)
-    status = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), x.shape[0],
-                x.shape[1], eps,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    N, d = x.shape
+    xp, sp, yp = x.data_ptr(), scale.data_ptr(), y.data_ptr()
+    lay = rmsnorm_layout(d, x.dtype, (xp | sp | yp) % 16 == 0)
+    status = _entry(x.dtype)(xp, sp, yp, N, d, eps, _build.stream_of(x),
+                             lay.threads, lay.tpr, lay.nch,
+                             int(lay.width > 1))
     _build.check(status, "rmsnorm kernel")
     LAUNCHES += 1
     return y
 
 
 def _entry(dtype: torch.dtype):
-    fn = getattr(_build.load("rmsnorm"), _ENTRIES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """The C entry point for ``dtype``, resolved once; raises if the
+    source does not build or load."""
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("rmsnorm"), _ENTRIES[dtype])
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[dtype] = fn
     return fn

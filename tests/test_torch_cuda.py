@@ -82,8 +82,13 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,d", [(4096, 3072), (4, 3072), (1000, 128),
-                                 (96, 512), (3, 50)])
+@pytest.mark.parametrize("N,d", [
+    (4096, 3072), (4, 3072), (1000, 128), (96, 512), (3, 50),
+    # Command R+'s d_model, DeepSeek-V2's, an MLA rank, single-element
+    # rows, single rows
+    (16, 12288), (33, 5120), (7, 1536), (300, 1), (1, 3072), (1, 12288),
+    (1, 50),
+])
 def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     gen = torch.Generator().manual_seed(N + d)
     x = (torch.randn((N, d), generator=gen) * 3).to(dtype).to(cuda)
@@ -94,6 +99,35 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     tol = dict(rtol=8e-3, atol=1e-6) if dtype == torch.bfloat16 \
         else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_unaligned_input_matches_plain(cuda, dtype):
+    """x one element off a 16-byte boundary: the element-wise path."""
+    gen = torch.Generator().manual_seed(11)
+    N, d = 6, 3072
+    x = (torch.randn((N * d + 1,), generator=gen) * 3).to(dtype).to(cuda)
+    x = x[1:].view(N, d)
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    assert x.data_ptr() % 16 != 0
+    assert rmsnorm.rmsnorm_layout(d, dtype, False).width == 1
+    got = rmsnorm.rmsnorm_cuda(x, scale)
+    want = rmsnorm.rmsnorm_torch(x, scale)
+    tol = dict(rtol=8e-3, atol=1e-6) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", [(4096, 3072), (4, 3072), (64, 128)])
+def test_rmsnorm_kernel_is_deterministic(cuda, N, d, dtype):
+    """No atomics and a fixed order of sums: two launches agree bit for
+    bit."""
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn((N, d), generator=gen) * 3).to(dtype).to(cuda)
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    _equal(rmsnorm.rmsnorm_cuda(x, scale).float(),
+           rmsnorm.rmsnorm_cuda(x, scale).float())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -108,6 +142,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     (1, 200, 200, 4, 2, 80, True, 0),      # D no multiple of 16
     (1, 64, 64, 2, 2, 20, True, 0),        # D no multiple of 8
     (1, 512, 512, 16, 16, 256, True, 0),   # Gemma-7B's heads
+    (1, 130, 130, 2, 1, 50, True, 0),      # D no multiple of 4
 ])
 def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
                                     window, dtype):
@@ -120,19 +155,21 @@ def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
-def test_flash_kernel_unaligned_inputs_match_plain(cuda):
-    """q, k, v 2 bytes off a 16-byte boundary: the bf16 kernel takes its
-    element-wise loader."""
-    gen = torch.Generator().manual_seed(8)
-    shape = (1, 192, 4, 64)
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.float32, 256),
+                                     (torch.float32, 80)])
+def test_flash_kernel_unaligned_inputs_match_plain(cuda, dtype, D):
+    """q, k, v one element (2 or 4 bytes) off a 16-byte boundary: either
+    kernel takes its element-wise loader."""
+    gen = torch.Generator().manual_seed(8 + D)
+    shape = (1, 192, 4, D)
     n = int(np.prod(shape))
-    q, k, v = (torch.randn((n + 1,), generator=gen).to(torch.bfloat16)
+    q, k, v = (torch.randn((n + 1,), generator=gen).to(dtype)
                .to(cuda)[1:].view(shape) for _ in range(3))
-    assert not flash_attention.vector_loads(64, q, k, v)
+    assert not flash_attention.vector_loads(D, q, k, v)
     got = flash_attention.flash_attention_cuda(q, k, v, True, 0)
     want = flash_attention.flash_attention_torch(q, k, v, True, 0)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **_tol(torch.bfloat16))
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -9,6 +9,8 @@ Tolerances are the JAX package's own kernel tests': float32 2e-5,
 bfloat16 2e-2, and 2e-4 against the model's chunked softmax."""
 from __future__ import annotations
 
+import types
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -265,3 +267,83 @@ def test_bf16_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(TypeError):
         flash_attention_cuda(q.half(), q.half(), q.half())
     assert fa.LAUNCHES == launches
+
+
+def test_float32_vector_loads_need_whole_chunks_and_alignment():
+    """The float32 kernel copies 4 values to 16 bytes: D % 4 == 0 and
+    every pointer 16-byte aligned, else the element-wise loader."""
+    buf = torch.zeros(8192, dtype=torch.float32)
+    assert buf.data_ptr() % 16 == 0
+    aligned, off = buf[:2048], buf[1:2049]
+    for D in (4, 20, 80, 128, 256):
+        assert vector_loads(D, aligned, aligned, aligned, aligned), D
+    for D in (1, 18, 50, 254):
+        assert not vector_loads(D, aligned), D
+    assert not vector_loads(256, aligned, off)   # one pointer 4 bytes off
+    assert not vector_loads(256, buf[2:2050])    # 8 bytes off
+    assert vector_loads(256, buf[4:2052])        # 16 bytes in
+    # the bf16 rule is unchanged: 20 bf16 values are 40 bytes
+    assert not vector_loads(20, aligned.to(torch.bfloat16))
+    assert vector_loads(24, aligned.to(torch.bfloat16))
+
+
+def test_entry_is_resolved_once_per_dtype(monkeypatch):
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(
+            flash_attention_f32_launch=types.SimpleNamespace(),
+            flash_attention_bf16_launch=types.SimpleNamespace())
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(fa, "_FNS", {})
+    for _ in range(50):
+        for dtype in (torch.float32, torch.bfloat16):
+            fa._entry(dtype)
+    assert loads == ["flash_attention", "flash_attention_tc"]
+    assert fa._entry(torch.float32).argtypes == fa._ARGTYPES
+
+
+def _f32_arithmetic(q, k, v, BK):
+    """The float32 kernel's arithmetic on (BH, S, D) values, causal:
+    64-row query tiles, BK-key tiles, the online softmax with exp, each
+    of a row's 16 threads summing its own keys (cg + 16j) and the 16
+    shares added at the end."""
+    BH, S, D = q.shape
+    sm = np.float32(1 / np.sqrt(D))
+    out = np.empty_like(q)
+    for q0 in range(0, S, 64):
+        qs = q[:, q0:q0 + 64]
+        rows = np.arange(q0, q0 + qs.shape[1])[:, None]
+        m = np.full(qs.shape[:2], -1e30, np.float32)
+        l = np.zeros(qs.shape[:2] + (16,), np.float32)
+        acc = np.zeros(qs.shape, np.float32)
+        for kt in range(0, min(S, q0 + 64), BK):
+            s = np.einsum("bqd,bkd->bqk", qs, k[:, kt:kt + BK]) * sm
+            keys = np.arange(kt, min(kt + BK, S))[None, :]
+            s = np.where(keys <= rows, s, np.float32(-1e30))
+            m_new = np.maximum(m, s.max(-1))
+            alpha = np.exp(m - m_new)
+            p = np.exp(s - m_new[..., None])
+            share = np.zeros_like(l)
+            for c in range(p.shape[-1]):
+                share[..., c % 16] += p[..., c]
+            l = alpha[..., None] * l + share
+            acc = alpha[..., None] * acc + np.einsum(
+                "bqk,bkd->bqd", p, v[:, kt:kt + BK])
+            m = m_new
+        out[:, q0:q0 + 64] = acc / np.maximum(l.sum(-1), 1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("H,D", [(2, 256), (4, 80)])
+def test_float32_tiling_matches_reference(H, D):
+    """The float32 route's 64-key tiles and per-thread shares of the row
+    sum stay within the float32 tolerance of ``reference_attention``
+    (S = 320 is no multiple of the Pallas wrapper's tiles)."""
+    q, k, v = _qkv(29 + D, 1, 320, 320, H, H, D)
+    want = jref.reference_attention(jnp.asarray(_bh(q)), jnp.asarray(_bh(k)),
+                                    jnp.asarray(_bh(v)), causal=True)
+    got = _f32_arithmetic(*(_bh(a) for a in (q, k, v)), 64)
+    np.testing.assert_allclose(got, np.asarray(want), **_tol("float32"))

@@ -9,6 +9,8 @@ are those of the JAX package's own kernel tests: float32 2e-5, bfloat16
 but their float32 reductions differ in order)."""
 from __future__ import annotations
 
+import types
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -17,8 +19,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels.rmsnorm import (
+    CHUNKS_PER_THREAD,
+    MAX_D,
+    MAX_THREADS,
+    rmsnorm_cuda,
+    rmsnorm_layout,
+    rmsnorm_torch,
+)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, np.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, ml_dtypes.bfloat16)}
@@ -88,3 +98,95 @@ def test_kernel_refuses_cpu_tensors():
         rmsnorm_cuda(torch.ones((4, 8)), torch.ones(8))
     with pytest.raises(TypeError):
         rmsnorm_cuda(torch.ones((4, 8), dtype=torch.float64), torch.ones(8))
+
+
+# (d, dtype) -> the layout with aligned pointers: (threads, tpr, nch, width)
+_LAYOUTS = {
+    (1, torch.float32): (256, 1, 1, 1),
+    (1, torch.bfloat16): (256, 1, 1, 1),
+    (50, torch.float32): (64, 64, 1, 1),      # 50 % 4 != 0
+    (50, torch.bfloat16): (64, 64, 1, 1),     # 50 % 8 != 0
+    (128, torch.float32): (256, 32, 1, 4),    # a warp per row, 8 rows
+    (128, torch.bfloat16): (256, 16, 1, 8),   # half a warp, 16 rows
+    (3072, torch.float32): (768, 768, 1, 4),
+    (3072, torch.bfloat16): (384, 384, 1, 8),  # 12 warps, one load each
+    (12288, torch.float32): (768, 768, 4, 4),
+    (12288, torch.bfloat16): (768, 768, 2, 8),
+}
+
+
+@pytest.mark.parametrize("d,dtype", list(_LAYOUTS))
+def test_layout_choice(d, dtype):
+    lay = rmsnorm_layout(d, dtype, True)
+    assert tuple(lay) == _LAYOUTS[d, dtype]
+    # every chunk of the row has a thread; a row is a power-of-two share
+    # of a warp or a block of its own in whole warps
+    assert lay.tpr * lay.nch * lay.width >= d
+    assert lay.nch in CHUNKS_PER_THREAD[lay.width]
+    assert lay.threads <= MAX_THREADS and lay.threads % 32 == 0
+    if lay.tpr <= 32:
+        assert lay.tpr & (lay.tpr - 1) == 0 and lay.threads % lay.tpr == 0
+    else:
+        assert lay.threads == lay.tpr
+    # a pointer off a 16-byte boundary takes the element-wise path
+    lay = rmsnorm_layout(d, dtype, False)
+    assert lay.width == 1 and lay.tpr * lay.nch >= d
+
+
+def test_layout_covers_every_width_up_to_the_widest():
+    for dtype in (torch.float32, torch.bfloat16):
+        for aligned in (True, False):
+            for d in list(range(1, 300)) + [1535, 1536, 4095, 4096, 4104,
+                                            8192, 8200, 12288, MAX_D]:
+                lay = rmsnorm_layout(d, dtype, aligned)
+                assert lay.tpr * lay.nch * lay.width >= d, (d, lay)
+                assert lay.width == 1 or d % lay.width == 0
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    for d in (0, MAX_D + 1):
+        with pytest.raises(ValueError, match="rmsnorm kernel takes"):
+            rmsnorm_layout(d, torch.float32, True)
+    with pytest.raises(ValueError, match=r"\(N, d\)"):
+        rmsnorm_cuda(torch.ones((2, 3, 8)), torch.ones(8))
+    with pytest.raises(ValueError, match=r"\(N, d\)"):
+        rmsnorm_cuda(torch.ones((4, 8)), torch.ones(7))
+    with pytest.raises(TypeError):
+        rmsnorm_cuda(torch.ones((4, 8), dtype=torch.float16), torch.ones(8))
+
+
+class _Lib:
+    """Stands in for the loaded library: one attribute per entry point."""
+
+    def __init__(self):
+        self.rmsnorm_f32_launch = types.SimpleNamespace()
+        self.rmsnorm_bf16_launch = types.SimpleNamespace()
+
+
+def test_entry_is_loaded_once_per_dtype(monkeypatch):
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return _Lib()
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(rn, "_FNS", {})
+    first = {dt: rn._entry(dt) for dt in (torch.float32, torch.bfloat16)}
+    for _ in range(100):
+        for dt in (torch.float32, torch.bfloat16):
+            assert rn._entry(dt) is first[dt]
+    assert loads == ["rmsnorm", "rmsnorm"]
+    assert first[torch.float32].argtypes == rn._ARGTYPES
+
+
+def test_failed_build_raises_every_time(monkeypatch):
+    def failing_load(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", failing_load)
+    monkeypatch.setattr(rn, "_FNS", {})
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="rmsnorm"):
+            rn._entry(torch.bfloat16)
+    assert rn._FNS == {}
