@@ -8,9 +8,11 @@ It builds the five CUDA sources from ``src/repro_torch/kernels/csrc``
 with nvcc, one nvcc per source in parallel, and drives the port's two
 paths:
 
-  * the PD-ORS offer path: both offer-path kernels against their plain
-    torch versions on the card (bit for bit), then the paper's largest
-    Fig. 6 point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
+  * the PD-ORS offer path: both offer-path kernels and their host-level
+    calls against their plain torch versions on the card (bit for bit;
+    near-ties at three magnitudes, unreachable rows, Q1 up to 1024, k
+    up to 200, R from 1 to 8, NaN and negative free), then the paper's
+    largest Fig. 6 point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
     workload_scale=0.3, batch=(50,200), quanta=20, seed 0) on the card
     and on the CPU, requiring identical decisions;
   * the serving path: the rmsnorm and flash-attention kernels (bf16 on
@@ -26,9 +28,10 @@ paths:
     on the CPU from the same weights, requiring identical greedy tokens.
 
 It prints each path's numbers, the card's name and power limit, one JSON
-line with each kernel's launches, error, times and bound (rmsnorm at the
-prefill shape (4096, 3072) and, nested, the decode shape (4, 3072); flash
-attention on both routes), and as its last line
+line with each kernel's launches, error, times and bound (the offer
+kernels also with their host-level call's time, copies included;
+rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
+(4, 3072); flash attention on both routes), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
@@ -117,15 +120,21 @@ def _device_ms(fn, name: str, reps: int = 50) -> float:
 
 
 # --------------------------------------------------------------- inputs
-def _bundle_inputs(gen, W, H, R, zero_cols=()):
+def _bundle_inputs(gen, W, H, R, zero_cols=(), edges=False):
     price = torch.rand((W, H, R), generator=gen, dtype=torch.float64) * 8
     price += 0.1
-    free = torch.rand((W, H, R), generator=gen, dtype=torch.float64) * 30
+    free = torch.rand((W, H, R), generator=gen, dtype=torch.float64) * 33
+    free -= 3.0                               # < 0: over-committed
     wdem = (torch.rand(R, generator=gen, dtype=torch.float64) * 3).numpy()
     sdem = (torch.rand(R, generator=gen, dtype=torch.float64) * 3).numpy()
     for k in zero_cols:
         wdem[k] = 0.0
         sdem[(k + 1) % R] = 0.0
+    if edges:                  # NaN, -inf and exact multiples of a demand
+        flat = free.view(-1)
+        flat[::7] = float("nan")
+        flat[3::11] = -float("inf")
+        free[..., R - 1] = 3.0 * wdem[R - 1]
     return price, free, wdem, sdem
 
 
@@ -136,17 +145,38 @@ def _sweep_inputs(gen, k, Q1, inf_frac=0.2):
     return tc
 
 
+def _near_tie_inputs(gen, k, Q1, mag):
+    """tcost on a 0.1 * mag grid plus absolute offsets of 0.5e-12 to
+    3e-12: rows whose candidates tie exactly, to an ulp, or within a few
+    1e-12 on both sides of the hysteresis, so the kernel's replay of the
+    scalar scan runs."""
+    tc = torch.round(torch.rand((k, Q1), generator=gen,
+                                dtype=torch.float64) * 50) / 10 * mag
+    offs = torch.tensor([0.0, 5e-13, -5e-13, 1e-12, -1e-12, 1.5e-12, 2e-12,
+                         -2e-12, 3e-12], dtype=torch.float64)
+    tc += offs[torch.randint(0, len(offs), (k, Q1), generator=gen)]
+    tc[torch.rand((k, Q1), generator=gen) < 0.1] = float("inf")
+    tc[:, 0] = 0.0
+    return tc
+
+
 def check_kernels(pricing, minplus) -> dict:
     """Each kernel against its plain version on the card; returns the
     max abs error per kernel (0.0: bit-identical)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     err = {"price_bundle": 0.0, "minplus_sweep": 0.0}
+    gamma = 8.789275684645638           # coef's product rounds
     cases = [
         _bundle_inputs(gen, 20, 100, 4),
         _bundle_inputs(gen, 1, 100, 4),
         _bundle_inputs(gen, 37, 1000, 7, zero_cols=(1, 4)),
     ]
+    # the kernel's widths, zero-demand columns, NaN / -inf / negative free
+    for R in (1, 4, 7, 8):
+        cases.append(_bundle_inputs(gen, 20, 100, R,
+                                    zero_cols=(0,) if R > 1 else (),
+                                    edges=True))
     # exact capacity: free=9, demand=3 gives head-room 3, not 2 or 4
     cases.append((torch.ones((2, 3, 1), dtype=torch.float64),
                   torch.full((2, 3, 1), 9.0, dtype=torch.float64),
@@ -157,30 +187,57 @@ def check_kernels(pricing, minplus) -> dict:
                   np.zeros(4), np.zeros(4)))
     for i, (price, free, wdem, sdem) in enumerate(cases):
         price, free = price.to(dev), free.to(dev)
-        dem = pricing.demand_operand(wdem, sdem, 4.0, dev)
-        got = pricing.price_bundle_batch_cuda(price, free, dem)
-        want = pricing.price_bundle_batch_torch(price, free, dem)
+        got = pricing.price_bundle_batch_cuda(price, free, wdem, sdem, gamma)
+        want = pricing.price_bundle_batch_torch(price, free, wdem, sdem,
+                                                gamma)
         torch.cuda.synchronize()
         err["price_bundle"] = max(err["price_bundle"], _equal(
             got, want, f"price_bundle case {i} {tuple(price.shape)}"))
+    # operands one double off a 16-byte boundary: element loads
+    price, free, wdem, sdem = _bundle_inputs(gen, 20, 100, 4, edges=True)
+    price, free = (torch.cat([torch.zeros(1, dtype=torch.float64),
+                              a.reshape(-1)]).to(dev)[1:].view(a.shape)
+                   for a in (price, free))
+    aligned = (price.data_ptr() | free.data_ptr()) % 16 == 0
+    if aligned or pricing.bundle_vec(4, aligned) != 1:
+        raise AssertionError("offset operands took double2 loads")
+    err["price_bundle"] = max(err["price_bundle"], _equal(
+        pricing.price_bundle_batch_cuda(price, free, wdem, sdem, gamma),
+        pricing.price_bundle_batch_torch(price, free, wdem, sdem, gamma),
+        "price_bundle element loads"))
     edge = pricing.price_bundle_batch_cuda(
-        cases[3][0].to(dev), cases[3][1].to(dev),
-        pricing.demand_operand(cases[3][2], cases[3][3], 1.0, dev))
+        cases[-2][0].to(dev), cases[-2][1].to(dev), cases[-2][2],
+        cases[-2][3], 1.0)
     if not (edge[3] == 3.0).all():
         raise AssertionError("exact-capacity head-room is not 3")
+    # the backend's host-level call against the CPU's
+    price, free, wdem, sdem = cases[0]
+    for g, w in zip(pricing.price_bundle_batch(price.to(dev), free.to(dev),
+                                               wdem, sdem, gamma),
+                    pricing.price_bundle_batch(price, free, wdem, sdem,
+                                               gamma)):
+        np.testing.assert_array_equal(g, w, err_msg="price_bundle host call")
 
-    sweeps = [_sweep_inputs(gen, 20, 21), _sweep_inputs(gen, 20, 33),
-              _sweep_inputs(gen, 5, 49, inf_frac=0.0)]
-    # near-ties inside the 1e-12 hysteresis
+    # every width and depth (k*Q1 past shared memory streams through the
+    # ring), near-ties at three magnitudes, unreachable rows
+    sweeps = [_sweep_inputs(gen, k, Q1)
+              for Q1 in (1, 2, 21, 32, 33, 49, 100, 129, 1024)
+              for k in (1, 3, 20, 200)]
+    sweeps.append(_sweep_inputs(gen, 5, 49, inf_frac=0.0))
+    sweeps += [_near_tie_inputs(gen, k, Q1, mag) for mag in (1.0, 1e3, 1e6)
+               for k, Q1 in ((20, 21), (20, 33), (200, 49), (20, 100),
+                             (3, 1024))]
     tie = torch.tensor([[0.0, 0.30000000000000004, 0.6],
                         [0.0, 0.3, 0.6000000000000001]], dtype=torch.float64)
     sweeps.append(tie)
-    # all-unreachable rows: every step but the first is +inf past v=0
     unreach = torch.full((4, 21), float("inf"), dtype=torch.float64)
     unreach[:, 0] = 0.0
     sweeps.append(unreach)
     sweeps.append(torch.full((3, 2), float("inf"), dtype=torch.float64))
+    sweeps.append(torch.full((200, 1024), float("inf"), dtype=torch.float64))
+    ring = 0
     for i, tc in enumerate(sweeps):
+        ring += minplus.sweep_layout(*tc.shape).ring
         tc = tc.to(dev)
         gc, gch = minplus.minplus_sweep_cuda(tc)
         wc, wch = minplus.minplus_sweep_torch(tc)
@@ -188,6 +245,13 @@ def check_kernels(pricing, minplus) -> dict:
         err["minplus_sweep"] = max(err["minplus_sweep"], _equal(
             gc, wc, f"minplus_sweep values case {i} {tuple(tc.shape)}"))
         _equal(gch, wch, f"minplus_sweep choice case {i}")
+    if ring < 3:
+        raise AssertionError("too few sweeps streamed tcost through the ring")
+    # the DP's host-level call against the CPU's
+    tc = _near_tie_inputs(gen, 20, 21, 1.0).numpy()
+    for g, w in zip(minplus.minplus_sweep_host(tc, dev),
+                    minplus.minplus_sweep_host(tc, "cpu")):
+        np.testing.assert_array_equal(g, w, err_msg="minplus_sweep host call")
     return err
 
 
@@ -233,9 +297,18 @@ def device_busy_share(rt, trace) -> tuple:
 
 
 # ---------------------------------------------------------------- times
+def _host_ms(fn, reps: int = 500, warmup: int = 20) -> float:
+    """Mean time per call on the host's clock, for a call that ends in a
+    sync of its own (the host-level calls the offer path makes)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def bundle_numbers(pricing, price, free, wdem, sdem, gamma) -> dict:
-    dev = price.device
-    dem = pricing.demand_operand(wdem, sdem, gamma, dev)
     W, H, R = price.shape
     nnz_w = int(np.count_nonzero(wdem))
     nnz_s = int(np.count_nonzero(sdem))
@@ -244,15 +317,19 @@ def bundle_numbers(pricing, price, free, wdem, sdem, gamma) -> dict:
     nbytes = 8 * (2 * W * H * R + 3 * R + 5 * W * H)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_OPS_PER_S * 1e3
-    coef = torch.stack([dem[0], dem[1], dem[2]], dim=1)   # (R, 3)
+    coef = torch.from_numpy(np.stack([wdem, sdem, wdem * gamma + sdem],
+                                     axis=1)).to(price.device)   # (R, 3)
     flat = price.reshape(W * H, R)
     return {
         "ms": _time_ms(lambda: pricing.price_bundle_batch_cuda(
-            price, free, dem)),
+            price, free, wdem, sdem, gamma)),
         "device_ms": _device_ms(lambda: pricing.price_bundle_batch_cuda(
-            price, free, dem), "price_bundle"),
+            price, free, wdem, sdem, gamma), "price_bundle"),
+        # what a plan pays: launch, copy back, sync (plan.bundle's call)
+        "host_ms": _host_ms(lambda: pricing.price_bundle_batch(
+            price, free, wdem, sdem, gamma)),
         "plain_ms": _time_ms(lambda: pricing.price_bundle_batch_torch(
-            price, free, dem), reps=50),
+            price, free, wdem, sdem, gamma), reps=50),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": _time_ms(lambda: torch.matmul(flat, coef)),
@@ -273,10 +350,14 @@ def sweep_numbers(minplus, tcost) -> dict:
     nbytes = 8 * (k * Q1 + 2 * (k + 1) * Q1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_OPS_PER_S * 1e3
+    host = tcost.cpu().numpy()
     return {
         "ms": _time_ms(lambda: minplus.minplus_sweep_cuda(tcost)),
         "device_ms": _device_ms(lambda: minplus.minplus_sweep_cuda(tcost),
                                 "minplus_sweep"),
+        # the DP's call: copy in, launch, copy back, sync (dp.sweep's)
+        "host_ms": _host_ms(lambda: minplus.minplus_sweep_host(
+            host, tcost.device)),
         "plain_ms": _time_ms(lambda: minplus.minplus_sweep_torch(tcost),
                              reps=10, warmup=2),
         "bound_ms": max(t_bytes, t_ops),
@@ -716,6 +797,12 @@ def main() -> int:
     price, free, wdem, sdem = _bundle_inputs(gen, 20, 100, 4, zero_cols=(0,))
     bnum = bundle_numbers(pricing, price.cuda(), free.cuda(), wdem, sdem, 4.0)
     snum = sweep_numbers(minplus, _sweep_inputs(gen, 20, 21).cuda())
+    for name, f in (("price_bundle (20, 100, 4)", bnum),
+                    ("minplus_sweep (k=20, Q1=21)", snum)):
+        print(f"{name}: device {f['device_ms']} ms, events {f['ms']} ms, "
+              f"host-level call {f['host_ms']} ms, {f['bound_ms']} ms "
+              f"{f['bound_by']} bound; plain {f['plain_ms']} ms, library "
+              f"{f['library_ms']} ms")
     x = (torch.randn((4096, 3072), generator=gen) * 3).to(torch.bfloat16)
     rnum = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
     rdec = rmsnorm_numbers(rmsnorm, x[:4].cuda(), torch.ones(3072).cuda())

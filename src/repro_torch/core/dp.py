@@ -35,9 +35,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
-from ..kernels.minplus import minplus_sweep
+from ..kernels.minplus import minplus_sweep_host
 from ..obs import trace as _trace
 from .cluster import Cluster
 from .job import Allocation, JobSpec
@@ -228,7 +227,8 @@ class WorkloadDP:
         order: ``_theta_costs`` is the only rng consumer and is still
         called in t-ascending order, and the sweep consumes no rng. The
         sweep runs on the ledger's device: the CUDA kernel on a CUDA
-        ledger, the plain torch version on a CPU one."""
+        ledger (one copy in, one launch, one copy back, one sync), the
+        plain torch version on a CPU one."""
         a = self.job.arrival
         Q = self.quanta
         device = self.cluster.backend.device
@@ -238,9 +238,7 @@ class WorkloadDP:
                          backend=device.type):
             tcost = np.stack([self._theta_costs(t)
                               for t in range(a, t_end + 1)])
-            C, choice = minplus_sweep(torch.from_numpy(tcost).to(device))
-            C = C.cpu().numpy()
-            self._choice = choice.cpu().numpy()
+            C, self._choice = minplus_sweep_host(tcost, device)
         return C
 
     def reconstruct(self, t_end: int, C: np.ndarray) -> Optional[DPResult]:

@@ -23,8 +23,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -44,6 +45,8 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
+_STAGING: Dict[Tuple[str, int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 #: nvcc's output (ptxas register/shared-memory report) per source built
 #: by this process
 BUILD_LOGS: Dict[str, str] = {}
@@ -119,6 +122,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, returning a
+    ``cudaError_t``; resolved once (built on first use)."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def staging(key: str, device: torch.device, n: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A pinned host buffer and a device buffer of at least ``n`` float64
+    each, kept for ``key`` on ``device`` in the calling thread and reused
+    from call to call (grown by doubling). The entries that use them end
+    every call with a stream sync, so a later call may overwrite both."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    slot = (key, index, threading.get_ident())
+    bufs = _STAGING.get(slot)
+    if bufs is None or bufs[0].numel() < n:
+        size = max(n, 2 * bufs[0].numel() if bufs is not None else 0, 64)
+        bufs = (torch.empty(size, dtype=torch.float64, pin_memory=True),
+                torch.empty(size, dtype=torch.float64,
+                            device=torch.device("cuda", index)))
+        _STAGING[slot] = bufs
+    return bufs
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -15,31 +15,48 @@ Two implementations of the sweep, both float64 and bit-identical in
 values and ``choice`` to k calls of the JAX package's ``minplus_scalar``:
 
   * ``minplus_sweep_cuda``  — the hand-written CUDA kernel
-    (``csrc/minplus_sweep.cu``): the whole sweep in one launch, one
-    thread per row u running the scalar scan;
+    (``csrc/minplus_sweep.cu``): the whole sweep in one launch of one
+    block, tcost staged in shared memory, one barrier a step; a row up to
+    128 wide is solved by a group of lanes taking its candidates in
+    parallel (shuffle min, ballot choice, the near-tie rows replayed
+    through the scalar scan), a wider row by one lane's scalar scan;
   * ``minplus_sweep_torch`` — its plain torch version, built on
     ``minplus_step_torch``: a Toeplitz row-min with the hysteresis choice,
     replaying through the sequential scan the rows whose values hold a
     near-tie within 2e-12 of the minimum (as ``minplus_numpy`` does).
 
-``minplus_sweep`` is the wrapper the DP calls: the plain version only for
-CPU tensors, the kernel for CUDA tensors (or it raises). ``LAUNCHES``
-counts kernel launches.
+``minplus_sweep_host`` is the DP's one call, numpy in and numpy out: the
+plain version on ``cpu``; on a card one copy in, one launch, one copy
+back into reused pinned memory and one stream sync (the kernel or it
+raises).
+``sweep_layout`` picks the kernel's row solver, lanes a row, warps and
+whether tcost streams through a ring. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 
 _INF = float("inf")
-#: the largest row the one-block kernel takes (one thread per state)
+#: the largest row the one-block kernel takes
 MAX_Q1 = 1024
+#: shared memory the kernel may use without an opt-in (bytes)
+SMEM_BUDGET = 48 * 1024
+#: tcost rows the kernel keeps in shared memory when the table does not fit
+RING = 2
+#: the widest row solved by a group of lanes; wider rows take the scan
+GROUP_MAX_Q1 = 128
+#: candidates a lane of a group holds
+GROUP_CANDIDATES = 4
 
-#: kernel launches made by ``minplus_sweep_cuda`` in this process
+#: kernel launches made by ``minplus_sweep_cuda`` and
+#: ``minplus_sweep_host`` in this process
 LAUNCHES = 0
 
 
@@ -85,10 +102,47 @@ def _check(tcost: torch.Tensor) -> None:
         raise TypeError(f"tcost must be float64, got {tcost.dtype}")
 
 
-def _tables(k: int, Q1: int, device):
-    C = torch.empty((k + 1, Q1), dtype=torch.float64, device=device)
-    choice = torch.empty((k + 1, Q1), dtype=torch.int64, device=device)
-    return C, choice
+class SweepLayout(NamedTuple):
+    """How the kernel runs a sweep in its one block: ``lanes`` a row (a
+    power of two; 0 for the scan, a lane a row), ``warps``, whether tcost
+    streams through a ring of ``RING`` rows (beside two running rows), and
+    the dynamic shared memory in bytes."""
+    lanes: int
+    warps: int
+    ring: bool
+    smem: int
+
+
+def _smem(rows: int, tc_rows: int, Q1: int) -> int:
+    """Bytes of shared memory for ``rows`` rows of C (float64) and of
+    choices (int32) and ``tc_rows`` rows of tcost."""
+    cells = rows * Q1
+    return (cells + (cells + 1) // 2 + tc_rows * Q1) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_layout(k: int, Q1: int) -> SweepLayout:
+    """The kernel's layout for a (k, Q1) tcost. Rows up to
+    ``GROUP_MAX_Q1`` wide go to groups of the fewest lanes (a power of
+    two) that hold ``GROUP_CANDIDATES`` candidates each, 32 / lanes rows a
+    warp, at most 32 warps; wider rows to the scan, a lane a row. Every
+    row of C and choice and all of tcost stay in shared memory when they
+    fit ``SMEM_BUDGET``; else two running rows and a ring of ``RING``
+    tcost rows."""
+    if not 1 <= Q1 <= MAX_Q1 or k < 0:
+        raise ValueError(f"the sweep kernel takes k >= 0 and 1 <= Q1 <= "
+                         f"{MAX_Q1}, got k={k}, Q1={Q1}")
+    if Q1 <= GROUP_MAX_Q1:
+        lanes = 1
+        while lanes * GROUP_CANDIDATES < Q1:
+            lanes *= 2
+        warps = min(32, -(-Q1 // (32 // lanes)))
+    else:
+        lanes, warps = 0, -(-Q1 // 32)
+    whole = _smem(k + 1, k, Q1)
+    if whole <= SMEM_BUDGET:
+        return SweepLayout(lanes, warps, False, whole)
+    return SweepLayout(lanes, warps, True, _smem(2, RING, Q1))
 
 
 def minplus_sweep_torch(tcost: torch.Tensor
@@ -96,50 +150,75 @@ def minplus_sweep_torch(tcost: torch.Tensor
     """Plain torch version of the sweep: (C (k+1, Q1), choice (k+1, Q1))."""
     _check(tcost)
     k, Q1 = tcost.shape
-    C, choice = _tables(k, Q1, tcost.device)
-    C.fill_(_INF)
+    C = torch.full((k + 1, Q1), _INF, dtype=torch.float64,
+                   device=tcost.device)
     C[0, 0] = 0.0
-    choice.fill_(-1)
+    choice = torch.full((k + 1, Q1), -1, dtype=torch.int64,
+                        device=tcost.device)
     for s in range(k):
         C[s + 1], choice[s + 1] = minplus_step_torch(C[s], tcost[s])
     return C, choice
 
 
+_LAUNCH_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_HOST_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def minplus_sweep_cuda(tcost: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the fused sweep kernel on the current stream; returns the
-    device tables without synchronizing."""
+    """Launch the sweep kernel on the current stream; returns the device
+    tables (views of one buffer) without synchronizing."""
     global LAUNCHES
     _check(tcost)
-    if tcost.device.type != "cuda":
+    if not tcost.is_cuda:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{tcost.device}")
     if not tcost.is_contiguous():
         raise ValueError("tcost must be contiguous")
     k, Q1 = tcost.shape
-    if Q1 > MAX_Q1:
-        raise ValueError(f"Q1={Q1} exceeds the one-block kernel's {MAX_Q1}")
-    C, choice = _tables(k, Q1, tcost.device)
-    fn = _entry()
-    status = fn(tcost.data_ptr(), C.data_ptr(), choice.data_ptr(), k, Q1,
-                torch.cuda.current_stream(tcost.device).cuda_stream)
+    lay = sweep_layout(k, Q1)
+    out = torch.empty((2, k + 1, Q1), dtype=torch.float64,
+                      device=tcost.device)
+    fn = _build.entry("minplus_sweep", "minplus_sweep_launch", _LAUNCH_ARGS)
+    status = fn(tcost.data_ptr(), out.data_ptr(), k, Q1, lay.lanes,
+                lay.warps, int(lay.ring), _build.stream_of(tcost))
     _build.check(status, "minplus_sweep kernel")
     LAUNCHES += 1
-    return C, choice
+    C, choice = out.unbind(0)
+    return C, choice.view(torch.int64)
 
 
-def _entry():
-    lib = _build.load("minplus_sweep")
-    fn = lib.minplus_sweep_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def minplus_sweep(tcost: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The DP's sweep: the plain version for a CPU tensor, the kernel for
-    a CUDA tensor. Tables come back on the input's device."""
-    if tcost.device.type == "cpu":
-        return minplus_sweep_torch(tcost)
-    return minplus_sweep_cuda(tcost)
+def minplus_sweep_host(tcost: np.ndarray, device
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """The DP's sweep, host to host: numpy (k, Q1) float64 ``tcost`` in,
+    numpy ``C`` and ``choice`` out. On ``cpu`` the plain version; on a
+    card one host-to-device copy from a reused pinned buffer, one launch,
+    one device-to-host copy into another and one stream sync, all in one
+    C call."""
+    global LAUNCHES
+    device = torch.device(device)
+    if device.type == "cpu":
+        C, choice = minplus_sweep_torch(torch.from_numpy(tcost))
+        return C.numpy(), choice.numpy()
+    if device.type != "cuda":
+        raise ValueError(f"the sweep runs on cpu or cuda, not {device}")
+    if tcost.ndim != 2 or tcost.shape[1] < 1:
+        raise ValueError(f"tcost must be (k, Q1) with Q1 >= 1, got "
+                         f"{tcost.shape}")
+    if tcost.dtype != np.float64:
+        raise TypeError(f"tcost must be float64, got {tcost.dtype}")
+    k, Q1 = tcost.shape
+    lay = sweep_layout(k, Q1)
+    n = (k + 1) * Q1
+    in_host, in_dev = _build.staging("minplus.in", device, k * Q1)
+    out_host, out_dev = _build.staging("minplus.out", device, 2 * n)
+    in_host.numpy()[:k * Q1].reshape(k, Q1)[...] = tcost
+    fn = _build.entry("minplus_sweep", "minplus_sweep_host", _HOST_ARGS)
+    status = fn(in_host.data_ptr(), in_dev.data_ptr(), out_dev.data_ptr(),
+                out_host.data_ptr(), k, Q1, lay.lanes, lay.warps,
+                int(lay.ring), _build.stream_of(out_dev))
+    _build.check(status, "minplus_sweep kernel")
+    LAUNCHES += 1
+    host = out_host.numpy()
+    return (host[:n].reshape(k + 1, Q1).copy(),
+            host[n:2 * n].view(np.int64).reshape(k + 1, Q1).copy())

@@ -15,20 +15,24 @@ the same function, both float64 and both bit-identical to the JAX
 package's numpy reference (``price_bundle_batch_numpy``):
 
   * ``price_bundle_batch_cuda``  — the hand-written CUDA kernel
-    (``csrc/price_bundle.cu``), one thread per (slot, machine);
+    (``csrc/price_bundle.cu``), one thread per (slot, machine); wdem and
+    sdem travel by value (R <= ``R_MAX``), the C entry forms coef from
+    them with the reference's two roundings, and a row is read as double2
+    where ``bundle_vec`` allows it;
   * ``price_bundle_batch_torch`` — its plain torch version, with the same
     per-resource accumulation order and zero-demand skips.
 
 ``price_bundle_batch`` is the wrapper the backend calls: it takes the
-plain version only for CPU tensors, launches the kernel for CUDA tensors
-(and raises if it cannot), and copies the five rows to the host in one
-copy — the admission decision's sync point. ``price_bundle`` is the
-per-slot form: the same call with W = 1. ``LAUNCHES`` counts kernel
-launches.
+plain version only for CPU tensors; for CUDA tensors one C call launches
+the kernel, copies the five rows into reused pinned memory and syncs the
+stream (the admission decision's one sync point), or it raises.
+``price_bundle`` is the per-slot form: the same call with W = 1.
+``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -38,92 +42,139 @@ from . import _build
 
 Bundle = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
-#: kernel launches made by ``price_bundle_batch_cuda`` in this process
+#: kernel launches made by ``price_bundle_batch_cuda`` and
+#: ``price_bundle_batch`` in this process
 LAUNCHES = 0
+#: the most resources the kernel takes (its demand parameter's width)
+R_MAX = 8
+
+#: per thread, the host buffer the C entries read the demand from
+#: (wdem[:R], then sdem[:R]) and its address
+_LOCAL = threading.local()
+
+_LAUNCH_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_double, ctypes.c_void_p]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_HOST_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_double]
+              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+              + [ctypes.c_void_p])
 
 
-def demand_operand(wdem: np.ndarray, sdem: np.ndarray, gamma: float,
-                   device) -> torch.Tensor:
-    """The kernel's (3, R) float64 demand rows: wdem, sdem and the
-    co-location coefficient wdem*gamma + sdem, computed on the host with
-    the reference's arithmetic."""
-    wdem = np.asarray(wdem, dtype=np.float64)
-    sdem = np.asarray(sdem, dtype=np.float64)
-    dem = np.stack([wdem, sdem, wdem * gamma + sdem])
-    return torch.as_tensor(dem, device=device)
+def pack_demand(wdem, sdem) -> int:
+    """Stage wdem and sdem where the kernel's entries read them (into
+    their by-value parameter, before they return): a buffer of the
+    calling thread. Returns its host address; raises unless
+    1 <= R <= ``R_MAX``."""
+    R = len(wdem)
+    if not 1 <= R <= R_MAX or len(sdem) != R:
+        raise ValueError(f"the kernel takes 1 <= R <= {R_MAX} resources, "
+                         f"got wdem of {R} and sdem of {len(sdem)}")
+    staged = getattr(_LOCAL, "demand", None)
+    if staged is None:
+        buf = np.zeros(2 * R_MAX)
+        staged = _LOCAL.demand = (buf, buf.ctypes.data)
+    buf, ptr = staged
+    buf[:R] = wdem
+    buf[R:2 * R] = sdem
+    return ptr
 
 
-def _check(price: torch.Tensor, free: torch.Tensor,
-           dem: torch.Tensor) -> None:
+def bundle_vec(R: int, aligned: bool) -> int:
+    """Doubles a load takes: 2 (one double2) when a row is a whole number
+    of them and both operands are 16-byte aligned (``aligned``), else 1."""
+    return 2 if aligned and R % 2 == 0 else 1
+
+
+def _check(price: torch.Tensor, free: torch.Tensor, wdem, sdem) -> None:
     if price.dim() != 3 or free.shape != price.shape:
         raise ValueError(f"price/free must be equal (W, H, R) stacks, got "
                          f"{tuple(price.shape)} and {tuple(free.shape)}")
-    if dem.shape != (3, price.shape[2]):
-        raise ValueError(f"demand rows must be (3, {price.shape[2]}), "
-                         f"got {tuple(dem.shape)}")
-    for name, x in (("price", price), ("free", free), ("dem", dem)):
-        if x.dtype != torch.float64:
-            raise TypeError(f"{name} must be float64, got {x.dtype}")
-        if x.device != price.device:
-            raise ValueError(f"{name} is on {x.device}, price on "
-                             f"{price.device}")
+    if price.dtype is not torch.float64 or free.dtype is not torch.float64:
+        raise TypeError(f"price and free must be float64, got {price.dtype}"
+                        f" and {free.dtype}")
+    if len(wdem) != price.shape[2] or len(sdem) != price.shape[2]:
+        raise ValueError(f"demand rows must have R={price.shape[2]} "
+                         f"entries, got {len(wdem)} and {len(sdem)}")
+    if free.get_device() != price.get_device():
+        raise ValueError(f"free is on {free.device}, price on "
+                         f"{price.device}")
+
+
+def _kernel_args(price: torch.Tensor, free: torch.Tensor, wdem,
+                 sdem) -> Tuple[int, int, int, int]:
+    """What the kernel's entries take beyond gamma and the output: (host
+    address of the staged demand, WH, R, vec); raises on what they do not
+    take."""
+    _check(price, free, wdem, sdem)
+    dem_ptr = pack_demand(wdem, sdem)
+    if not price.is_cuda:
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{price.device}")
+    if not (price.is_contiguous() and free.is_contiguous()):
+        raise ValueError("price and free must be contiguous")
+    W, H, R = price.shape
+    aligned = (price.data_ptr() | free.data_ptr()) % 16 == 0
+    return dem_ptr, W * H, R, bundle_vec(R, aligned)
 
 
 def price_bundle_batch_torch(price: torch.Tensor, free: torch.Tensor,
-                             dem: torch.Tensor) -> torch.Tensor:
+                             wdem, sdem, gamma: float) -> torch.Tensor:
     """Plain torch version: the (5, W, H) rows (wprice, sprice, coloc,
     max_w, max_s), accumulated in the reference's per-resource order."""
-    _check(price, free, dem)
+    _check(price, free, wdem, sdem)
     W, H, R = price.shape
-    wdem, sdem, coef = dem.tolist()
+    wdem = np.asarray(wdem, dtype=np.float64)
+    sdem = np.asarray(sdem, dtype=np.float64)
+    coef = (wdem * gamma + sdem).tolist()
     out = torch.zeros((5, W, H), dtype=torch.float64, device=price.device)
     for k in range(R):
         pcol = price[:, :, k]
         if wdem[k]:
-            out[0] += pcol * wdem[k]
+            out[0] += pcol * float(wdem[k])
         if sdem[k]:
-            out[1] += pcol * sdem[k]
+            out[1] += pcol * float(sdem[k])
         out[2] += pcol * coef[k]
-    for row, d in ((3, dem[0]), (4, dem[1])):
-        pos = torch.nonzero(d > 0).flatten()
-        if pos.numel() == 0:
+    for row, d in ((3, wdem), (4, sdem)):
+        pos = np.flatnonzero(d > 0)
+        if pos.size == 0:
             out[row] = float("inf")
             continue
-        ratio = (free[:, :, pos] / d[pos]).amin(dim=2)
+        ratio = (free[:, :, torch.as_tensor(pos, device=price.device)]
+                 / torch.as_tensor(d[pos], device=price.device)).amin(dim=2)
         out[row] = torch.floor(ratio.clamp_min(0.0))
     return out
 
 
 def price_bundle_batch_cuda(price: torch.Tensor, free: torch.Tensor,
-                            dem: torch.Tensor) -> torch.Tensor:
+                            wdem, sdem, gamma: float) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; returns the (5, W, H)
     rows on the device without synchronizing."""
     global LAUNCHES
-    _check(price, free, dem)
-    if price.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
-                         f"{price.device}")
-    if not (price.is_contiguous() and free.is_contiguous()
-            and dem.is_contiguous()):
-        raise ValueError("price, free and dem must be contiguous")
-    W, H, R = price.shape
-    out = torch.empty((5, W, H), dtype=torch.float64, device=price.device)
-    fn = _entry()
-    status = fn(price.data_ptr(), free.data_ptr(), dem.data_ptr(),
-                out.data_ptr(), W * H, R,
-                torch.cuda.current_stream(price.device).cuda_stream)
+    dem_ptr, WH, R, vec = _kernel_args(price, free, wdem, sdem)
+    out = torch.empty((5,) + price.shape[:2], dtype=torch.float64,
+                      device=price.device)
+    fn = _build.entry("price_bundle", "price_bundle_launch", _LAUNCH_ARGS)
+    status = fn(price.data_ptr(), free.data_ptr(), dem_ptr, gamma,
+                out.data_ptr(), WH, R, vec, _build.stream_of(price))
     _build.check(status, "price_bundle kernel")
     LAUNCHES += 1
     return out
 
 
-def _entry():
-    lib = _build.load("price_bundle")
-    fn = lib.price_bundle_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _bundle_host(price: torch.Tensor, free: torch.Tensor, wdem, sdem,
+                 gamma: float) -> np.ndarray:
+    """The kernel's round trip in one C call: launch, one copy of the
+    five rows into reused pinned memory, one stream sync; returns them
+    as a (5, W, H) host array of its own."""
+    global LAUNCHES
+    dem_ptr, WH, R, vec = _kernel_args(price, free, wdem, sdem)
+    host, dev = _build.staging("price_bundle.out", price.device, 5 * WH)
+    fn = _build.entry("price_bundle", "price_bundle_host", _HOST_ARGS)
+    status = fn(price.data_ptr(), free.data_ptr(), dem_ptr, gamma,
+                dev.data_ptr(), host.data_ptr(), WH, R, vec,
+                _build.stream_of(price))
+    _build.check(status, "price_bundle kernel")
+    LAUNCHES += 1
+    return host.numpy()[:5 * WH].reshape((5,) + price.shape[:2]).copy()
 
 
 def price_bundle_batch(price: torch.Tensor, free: torch.Tensor,
@@ -132,12 +183,11 @@ def price_bundle_batch(price: torch.Tensor, free: torch.Tensor,
     """Fused multi-slot snapshot reduction: five (W, H) host float64
     arrays from one reduction and one device-to-host copy. CPU tensors
     take the plain version; CUDA tensors launch the kernel."""
-    dem = demand_operand(wdem, sdem, gamma, price.device)
     if price.device.type == "cpu":
-        rows = price_bundle_batch_torch(price, free, dem)
+        host = price_bundle_batch_torch(price, free, wdem, sdem,
+                                        gamma).numpy()
     else:
-        rows = price_bundle_batch_cuda(price, free, dem)
-    host = rows.cpu().numpy()
+        host = _bundle_host(price, free, wdem, sdem, gamma)
     return host[0], host[1], host[2], host[3], host[4]
 
 

@@ -34,31 +34,199 @@ def _equal(a, b):
     np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("W,H,R", [(20, 100, 4), (1, 100, 4), (37, 1000, 7)])
-def test_price_bundle_kernel_matches_plain(cuda, W, H, R):
-    gen = torch.Generator().manual_seed(W * H + R)
-    price = (torch.rand((W, H, R), generator=gen, dtype=torch.float64) * 8
-             + 0.1).to(cuda)
-    free = (torch.rand((W, H, R), generator=gen, dtype=torch.float64) * 33
-            - 3).to(cuda)
-    wdem = np.linspace(0.0, 3.0, R)
-    sdem = np.linspace(2.0, 0.0, R)
-    dem = pricing.demand_operand(wdem, sdem, 4.0, cuda)
-    _equal(pricing.price_bundle_batch_cuda(price, free, dem),
-           pricing.price_bundle_batch_torch(price, free, dem))
+def _bundle_case(seed, W, H, R, zero_cols=False, edges=False):
+    """price, free on the host and the (wdem, sdem): free spans negative
+    (over-committed) values; ``zero_cols`` zeroes demand columns,
+    ``edges`` puts NaN, -inf and exact multiples of the demand in free."""
+    rng = np.random.default_rng(seed)
+    price = rng.uniform(0.1, 8.1, (W, H, R))
+    free = rng.uniform(-3.0, 30.0, (W, H, R))
+    wdem = rng.uniform(0.0, 3.0, R)
+    sdem = rng.uniform(0.0, 3.0, R)
+    if zero_cols:
+        wdem[::2] = 0.0
+        sdem[1::3] = 0.0
+    if edges:
+        free.reshape(-1)[::7] = np.nan
+        free.reshape(-1)[3::11] = -np.inf
+        free[..., 0] = 3.0 * wdem[0]
+    return price, free, wdem, sdem
 
 
-@pytest.mark.parametrize("k,Q1", [(20, 21), (20, 33), (3, 2)])
-def test_minplus_sweep_kernel_matches_plain(cuda, k, Q1):
-    gen = torch.Generator().manual_seed(k * Q1)
-    tcost = torch.rand((k, Q1), generator=gen, dtype=torch.float64) * 100
-    tcost[torch.rand((k, Q1), generator=gen) < 0.2] = float("inf")
-    tcost[:, 0] = 0.0
-    tcost = tcost.to(cuda)
-    got = minplus.minplus_sweep_cuda(tcost)
-    want = minplus.minplus_sweep_torch(tcost)
+BUNDLE_CASES = [  # W, H, R, zero-demand columns, NaN / -inf / exact free
+    (20, 100, 4, False, False), (20, 100, 4, True, True), (1, 100, 4, False,
+                                                           False),
+    (37, 1000, 7, True, True), (5, 33, 1, False, True), (5, 33, 1, True,
+                                                         False),
+    (20, 100, 8, True, True), (3, 129, 8, False, False), (20, 100, 7, False,
+                                                          False),
+    (20, 100, 3, True, True), (2, 17, 6, True, True), (4, 9, 2, False, True),
+]
+
+
+@pytest.mark.parametrize("W,H,R,zero_cols,edges", BUNDLE_CASES)
+def test_price_bundle_kernel_matches_plain(cuda, W, H, R, zero_cols, edges):
+    price, free, wdem, sdem = _bundle_case(W * H + R, W, H, R, zero_cols,
+                                           edges)
+    price, free = torch.from_numpy(price).to(cuda), \
+        torch.from_numpy(free).to(cuda)
+    gamma = 8.789275684645638        # coef's product rounds
+    _equal(pricing.price_bundle_batch_cuda(price, free, wdem, sdem, gamma),
+           pricing.price_bundle_batch_torch(price, free, wdem, sdem, gamma))
+
+
+@pytest.mark.parametrize("R", [4, 8])
+def test_price_bundle_kernel_element_loads_match_plain(cuda, R):
+    """Operands one double off a 16-byte boundary: element loads."""
+    price, free, wdem, sdem = _bundle_case(R, 20, 100, R, True, True)
+    n = price.size
+
+    def unaligned(a):
+        return torch.from_numpy(np.concatenate([[0.0], a.ravel()])) \
+            .to(cuda)[1:].view(a.shape)
+    price, free = unaligned(price), unaligned(free)
+    assert price.data_ptr() % 16 == 8 and price.numel() == n
+    assert pricing.bundle_vec(R, False) == 1
+    _equal(pricing.price_bundle_batch_cuda(price, free, wdem, sdem, 2.5),
+           pricing.price_bundle_batch_torch(price, free, wdem, sdem, 2.5))
+
+
+def test_price_bundle_host_call_matches_cpu(cuda):
+    """The backend's host-level call: the same five arrays on both
+    devices, and a result that a later call does not overwrite."""
+    price, free, wdem, sdem = _bundle_case(3, 20, 100, 4, True, True)
+    want = pricing.price_bundle_batch(torch.from_numpy(price),
+                                      torch.from_numpy(free), wdem, sdem, 4.0)
+    price_d = torch.from_numpy(price).to(cuda)
+    free_d = torch.from_numpy(free).to(cuda)
+    got = pricing.price_bundle_batch(price_d, free_d, wdem, sdem, 4.0)
+    pricing.price_bundle_batch(price_d * 2, free_d, wdem, sdem, 4.0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="R <= 8"):
+        pricing.price_bundle_batch(torch.ones((1, 2, 9), device=cuda,
+                                              dtype=torch.float64),
+                                   torch.ones((1, 2, 9), device=cuda,
+                                              dtype=torch.float64),
+                                   np.ones(9), np.ones(9), 1.0)
+
+
+#: run in a process of its own: after torch.profiler runs that traced
+#: these copies, later profiles in the same process came back empty
+_COPY_COUNT = """
+import json, numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import minplus, pricing
+rng = np.random.default_rng(0)
+price = torch.from_numpy(rng.uniform(0.1, 8.0, (20, 100, 4))).cuda()
+free = torch.from_numpy(rng.uniform(-3.0, 30.0, (20, 100, 4))).cuda()
+wdem, sdem = rng.uniform(0.0, 3.0, 4), rng.uniform(0.0, 3.0, 4)
+tcost = rng.uniform(0.0, 100.0, (20, 21))
+calls = {"price_bundle_kernel": lambda: pricing.price_bundle_batch(
+             price, free, wdem, sdem, 4.0),
+         "minplus_sweep_kernel": lambda: minplus.minplus_sweep_host(
+             tcost, "cuda")}
+out = {}
+for name, call in calls.items():
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+    counts = {"kernel": 0, "HtoD": 0, "DtoH": 0}
+    for ev in prof.key_averages():
+        for key in counts:
+            if (key == "kernel" and name in ev.key) or \\
+                    f"Memcpy {key}" in ev.key:
+                counts[key] += ev.count
+    out[name] = counts
+print(json.dumps(out))
+"""
+
+
+def test_host_calls_make_one_copy_each_way(cuda):
+    """A plan's bundle makes one launch and one copy back, no copy in;
+    the DP's sweep one copy in, one launch, one copy back (CUDA activity
+    under torch.profiler, in a process of its own)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    run = subprocess.run([sys.executable, "-c", _COPY_COUNT], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    counts = json.loads(run.stdout.strip().splitlines()[-1])
+    assert counts == {
+        "price_bundle_kernel": {"kernel": 1, "HtoD": 0, "DtoH": 1},
+        "minplus_sweep_kernel": {"kernel": 1, "HtoD": 1, "DtoH": 1},
+    }, counts
+
+
+def _near_tie_tcost(seed, k, Q1, mag):
+    """tcost on a 0.1 * mag grid (sums of different decompositions tie
+    exactly or to an ulp) with absolute offsets of 0.5e-12 to 3e-12, so
+    rows hold ties and near-ties on both sides of the 1e-12 hysteresis;
+    a few +inf entries, v = 0 free."""
+    rng = np.random.default_rng(seed)
+    tc = np.round(rng.uniform(0.0, 5.0, (k, Q1)), 1) * mag
+    tc += rng.choice([0.0, 5e-13, -5e-13, 1e-12, -1e-12, 1.5e-12, 2e-12,
+                      -2e-12, 3e-12], size=tc.shape)
+    tc[rng.random((k, Q1)) < 0.1] = np.inf
+    tc[:, 0] = 0.0
+    return tc
+
+
+def _random_tcost(seed, k, Q1):
+    rng = np.random.default_rng(seed)
+    tc = rng.uniform(0.0, 100.0, (k, Q1))
+    tc[rng.random((k, Q1)) < 0.2] = np.inf
+    tc[:, 0] = 0.0
+    return tc
+
+
+def _sweeps_equal(tcost, cuda):
+    t = torch.from_numpy(tcost).to(cuda)
+    got = minplus.minplus_sweep_cuda(t)
+    want = minplus.minplus_sweep_torch(t)
     _equal(got[0], want[0])
     _equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [1, 3, 20, 200])
+@pytest.mark.parametrize("Q1", [1, 2, 21, 32, 33, 49, 100, 129, 1024])
+def test_minplus_sweep_kernel_matches_plain(cuda, k, Q1):
+    """Random rows at every width and depth: groups of 1 to 32 lanes a
+    row up to Q1 = 128, the scan past it; k = 200 at Q1 >= 21 and every
+    sweep past Q1 = 128 streams tcost through the ring."""
+    _sweeps_equal(_random_tcost(k * Q1, k, Q1), cuda)
+
+
+@pytest.mark.parametrize("mag", [1.0, 1e3, 1e6])
+@pytest.mark.parametrize("k,Q1", [(20, 21), (20, 33), (200, 49), (20, 100),
+                                  (3, 1024)])
+def test_minplus_sweep_kernel_near_ties_match_plain(cuda, mag, k, Q1):
+    tcost = _near_tie_tcost(int(mag) + Q1, k, Q1, mag)
+    _sweeps_equal(tcost, cuda)
+
+
+def test_minplus_sweep_kernel_unreachable_rows_match_plain(cuda):
+    for tcost in (np.full((4, 21), np.inf), np.full((3, 2), np.inf),
+                  np.full((200, 1024), np.inf)):
+        _sweeps_equal(tcost, cuda)
+        tcost[:, 0] = 0.0                    # reachable only at u = 0
+        _sweeps_equal(tcost, cuda)
+
+
+def test_minplus_sweep_host_call_matches_cpu(cuda):
+    """The DP's host-level call: identical tables on both devices, and
+    a result that a later call does not overwrite."""
+    tcost = _near_tie_tcost(5, 20, 21, 1.0)
+    want = minplus.minplus_sweep_host(tcost, "cpu")
+    got = minplus.minplus_sweep_host(tcost, cuda)
+    minplus.minplus_sweep_host(tcost * 2, cuda)          # reuses the buffers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_offer_path_launches_both_kernels_and_matches_cpu(cuda):

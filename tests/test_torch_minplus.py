@@ -16,10 +16,16 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels import minplus as ref_minplus
 from repro.kernels.minplus import minplus_pallas, minplus_scalar
 from repro_torch.kernels.minplus import (
+    GROUP_CANDIDATES,
+    GROUP_MAX_Q1,
+    MAX_Q1,
+    RING,
+    SMEM_BUDGET,
     minplus_step_torch,
-    minplus_sweep,
     minplus_sweep_cuda,
+    minplus_sweep_host,
     minplus_sweep_torch,
+    sweep_layout,
 )
 
 
@@ -49,11 +55,11 @@ def _tcost_rows(rng, k, Q1, inf_frac=0.2):
 
 
 def _assert_sweep_matches_scalar(tcost):
-    C, ch = minplus_sweep(torch.from_numpy(tcost))
+    C, ch = minplus_sweep_host(tcost, "cpu")
     Cs, chs = _scalar_sweep(tcost)
-    np.testing.assert_array_equal(C.numpy(), Cs)
-    np.testing.assert_array_equal(ch.numpy(), chs)
-    assert ch.dtype == torch.int64
+    np.testing.assert_array_equal(C, Cs)
+    np.testing.assert_array_equal(ch, chs)
+    assert ch.dtype == np.int64
 
 
 @settings(max_examples=30, deadline=None)
@@ -126,8 +132,103 @@ def test_property_against_pallas_interpret(seed):
 
 def test_sweep_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
-        minplus_sweep(torch.zeros((2, 3), dtype=torch.float32))
+        minplus_sweep_torch(torch.zeros((2, 3), dtype=torch.float32))
     with pytest.raises(ValueError):
-        minplus_sweep(torch.zeros(3, dtype=torch.float64))
+        minplus_sweep_torch(torch.zeros(3, dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA"):
         minplus_sweep_cuda(torch.zeros((2, 3), dtype=torch.float64))
+
+
+def _near_tie_row(rng, n, mag):
+    """A row on a 0.1 * mag grid with absolute offsets of 0.5e-12 to
+    3e-12 and a few +inf entries: sums prev[u-v] + tcost[v] of different
+    decompositions tie exactly, to an ulp, or within a few 1e-12 on both
+    sides of the hysteresis."""
+    row = np.round(rng.uniform(0.0, 5.0, n), 1) * mag
+    row += rng.choice([0.0, 5e-13, -5e-13, 1e-12, -1e-12, 1.5e-12, 2e-12,
+                       -2e-12, 3e-12], size=n)
+    row[rng.random(n) < 0.1] = np.inf
+    return row
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(0, 10_000), st.integers(2, 48),
+       st.sampled_from([1.0, 1e3, 1e6]))
+def test_property_replay_predicate_matches_scalar_on_near_ties(seed, n, mag):
+    """The plain step's replay predicate (a candidate in (m, m + 2e-12])
+    hands exactly the rows where the first hit within m + 1e-12 is not
+    the scalar scan's answer to that scan: values and choice equal the
+    scalar reference on adversarial near-ties at magnitudes 1 to 1e6."""
+    rng = np.random.default_rng(seed)
+    prev = _near_tie_row(rng, n, mag)
+    prev[0] = 0.0 if rng.random() < 0.5 else prev[0]
+    tcost = _near_tie_row(rng, n, mag)
+    tcost[0] = 0.0
+    cur, ch = minplus_step_torch(torch.from_numpy(prev),
+                                 torch.from_numpy(tcost))
+    cs, chs = minplus_scalar(prev, tcost)
+    np.testing.assert_array_equal(cur.numpy(), cs)
+    np.testing.assert_array_equal(ch.numpy(), chs)
+
+
+@pytest.mark.parametrize("mag", [1.0, 1e3, 1e6])
+def test_near_tie_sweeps_match_scalar(mag):
+    rng = np.random.default_rng(int(mag))
+    tcost = np.stack([_near_tie_row(rng, 21, mag) for _ in range(20)])
+    tcost[:, 0] = 0.0
+    _assert_sweep_matches_scalar(tcost)
+
+
+@pytest.mark.parametrize("k,Q1", [(20, 21), (1, 1), (3, 2), (12, 33),
+                                  (0, 5)])
+def test_host_sweep_on_cpu_matches_scalar(k, Q1):
+    """The DP's host-level call on ``device="cpu"``: numpy tables equal
+    to k chained scalar steps."""
+    tcost = _tcost_rows(np.random.default_rng(k + Q1), k, Q1) if k \
+        else np.empty((0, Q1))
+    C, ch = minplus_sweep_host(tcost, "cpu")
+    assert isinstance(C, np.ndarray) and isinstance(ch, np.ndarray)
+    assert C.shape == ch.shape == (k + 1, Q1) and ch.dtype == np.int64
+    Cs, chs = _scalar_sweep(tcost)
+    np.testing.assert_array_equal(C, Cs)
+    np.testing.assert_array_equal(ch, chs)
+
+
+def test_host_sweep_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        minplus_sweep_host(np.zeros((2, 3), dtype=np.float32), "cpu")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        minplus_sweep_host(np.zeros((2, 3)), "meta")
+
+
+@pytest.mark.parametrize("k,Q1,lanes,warps,ring", [
+    (20, 21, 8, 6, False),     # the main path: 4 rows a warp, tables fit
+    (0, 1, 1, 1, False), (1, 2, 1, 1, False), (5, 4, 1, 1, False),
+    (5, 5, 2, 1, False), (3, 32, 8, 8, False),
+    (20, 33, 16, 17, False),   # quanta=32: 2 rows a warp
+    (20, 49, 16, 25, False), (20, 65, 32, 32, False),
+    (20, 128, 32, 32, True),   # the widest group row
+    (20, 129, 0, 5, True),     # the scan, a lane a row
+    (116, 21, 8, 6, False),    # the deepest sweep whose tables fit 48 KB
+    (117, 21, 8, 6, True), (200, 33, 16, 17, True),
+    (1, 1024, 0, 32, False), (2, 1024, 0, 32, True),
+    (200, 1024, 0, 32, True), (10**6, 3, 1, 1, True),
+])
+def test_sweep_layout(k, Q1, lanes, warps, ring):
+    lay = sweep_layout(k, Q1)
+    assert (lay.lanes, lay.warps, lay.ring) == (lanes, warps, ring)
+    rows, tc_rows = (2, RING) if ring else (k + 1, k)
+    cells = rows * Q1           # C in float64, choices in int32
+    assert lay.smem == (cells + (cells + 1) // 2 + tc_rows * Q1) * 8
+    assert lay.smem <= SMEM_BUDGET
+    if lanes:                  # every candidate of every row has a lane
+        assert lanes * GROUP_CANDIDATES >= Q1 and warps <= 32
+        assert lanes == 1 or (lanes // 2) * GROUP_CANDIDATES < Q1
+    else:
+        assert Q1 > GROUP_MAX_Q1 and warps * 32 >= Q1
+
+
+@pytest.mark.parametrize("k,Q1", [(3, 0), (3, MAX_Q1 + 1), (-1, 5)])
+def test_sweep_layout_refuses_what_the_kernel_does_not_take(k, Q1):
+    with pytest.raises(ValueError):
+        sweep_layout(k, Q1)

@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import PDORS as RefPDORS
 from repro.core import SubproblemConfig as RefSubproblemConfig
@@ -60,6 +61,29 @@ def test_golden_admissions_match_numpy_backend(scale, seed, rng_mode):
     got = rt.run_pdors(jobs, rt.make_cluster(6, 10, device="cpu"),
                        cfg=SubproblemConfig(rng_mode=rng_mode),
                        quanta=8, seed=0)
+    assert decision_trace(got) == decision_trace(ref)
+    assert got.total_utility == pytest.approx(ref.total_utility, rel=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng_mode", ["compat", "derived"])
+@pytest.mark.parametrize("scale,seed", GOLDEN)
+def test_golden_admissions_on_the_card_match_numpy_backend(scale, seed,
+                                                           rng_mode):
+    """The seed sweep on the card: a CUDA ledger (both offer kernels, the
+    card's repricing) decides as the JAX package's numpy backend does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ref_jobs, jobs = _jobs(scale, seed)
+    ref = ref_run_pdors(ref_jobs, ref_make_cluster(6, 10, backend="numpy"),
+                        cfg=RefSubproblemConfig(rng_mode=rng_mode),
+                        quanta=8, seed=0)
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    got = rt.run_pdors(jobs, rt.make_cluster(6, 10, device="cuda"),
+                       cfg=SubproblemConfig(rng_mode=rng_mode),
+                       quanta=8, seed=0)
+    assert pricing.LAUNCHES > 0 and minplus.LAUNCHES > 0
     assert decision_trace(got) == decision_trace(ref)
     assert got.total_utility == pytest.approx(ref.total_utility, rel=1e-9)
 

@@ -20,8 +20,11 @@ from repro.kernels.pricing import (
     price_bundle_numpy,
 )
 from repro_torch.backend.torch_backend import TorchBackend
+from repro_torch.kernels import pricing
 from repro_torch.kernels.pricing import (
-    demand_operand,
+    R_MAX,
+    bundle_vec,
+    pack_demand,
     price_bundle_batch,
     price_bundle_batch_cuda,
     price_bundle_batch_torch,
@@ -43,9 +46,8 @@ def _instance(seed, W, H, R, zero_cols=False):
 
 
 def _plain(price, free, wdem, sdem, gamma):
-    dem = demand_operand(wdem, sdem, gamma, "cpu")
     rows = price_bundle_batch_torch(torch.from_numpy(price),
-                                    torch.from_numpy(free), dem)
+                                    torch.from_numpy(free), wdem, sdem, gamma)
     return tuple(rows.numpy())
 
 
@@ -126,7 +128,68 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                            gamma)
     # a CPU tensor never reaches the kernel, and the kernel path does not
     # fall back to the plain version
-    dem = demand_operand(wdem, sdem, gamma, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         price_bundle_batch_cuda(torch.from_numpy(price),
-                                torch.from_numpy(free), dem)
+                                torch.from_numpy(free), wdem, sdem, gamma)
+
+
+@pytest.mark.parametrize("R", [1, 4, 7, 8])
+def test_batch_edges_bit_identical_to_numpy(R):
+    """NaN, -inf, negative and exactly divisible free values beside
+    zero-demand columns, at the kernel's narrowest and widest R and odd
+    R: the plain version and the backend agree with numpy bit for bit."""
+    price, free, wdem, sdem, gamma = _instance(20 + R, 5, 31, R,
+                                               zero_cols=R > 1)
+    free.reshape(-1)[::7] = np.nan
+    free.reshape(-1)[3::11] = -np.inf
+    free[..., R - 1] = 3.0 * wdem[R - 1]
+    want = price_bundle_batch_numpy(price, free, wdem, sdem, gamma)
+    _assert_bundles_equal(_plain(price, free, wdem, sdem, gamma), want)
+    got = TorchBackend("cpu").snapshot_bundle_batch(
+        torch.from_numpy(price), torch.from_numpy(free), wdem, sdem, gamma)
+    _assert_bundles_equal(got, want)
+
+
+@pytest.mark.parametrize("R,ok", [(1, True), (4, True), (8, True),
+                                  (9, False), (16, False)])
+def test_pack_demand_takes_at_most_r_max(R, ok):
+    """The kernel's demand parameter holds R_MAX resources: wdem then sdem
+    are staged where its entries read them, and a wider R is refused, by
+    the kernel path too, before it looks at the device."""
+    wdem = np.arange(1.0, R + 1)
+    sdem = -np.arange(1.0, R + 1)
+    if ok:
+        ptr = pack_demand(wdem, sdem)
+        buf, staged_ptr = pricing._LOCAL.demand
+        assert ptr == staged_ptr == buf.ctypes.data
+        np.testing.assert_array_equal(buf[:R], wdem)
+        np.testing.assert_array_equal(buf[R:2 * R], sdem)
+        return
+    with pytest.raises(ValueError, match=f"R <= {R_MAX}"):
+        pack_demand(wdem, sdem)
+    ones = torch.ones((1, 2, R), dtype=torch.float64)
+    with pytest.raises(ValueError, match=f"R <= {R_MAX}"):
+        price_bundle_batch_cuda(ones, ones, wdem, sdem, 2.0)
+
+
+def test_pack_demand_refuses_unequal_rows():
+    with pytest.raises(ValueError, match="sdem of 3"):
+        pack_demand(np.ones(4), np.ones(3))
+    with pytest.raises(ValueError, match="R <= "):
+        pack_demand(np.ones(0), np.ones(0))
+
+
+def test_plain_version_checks_its_operands():
+    price, free, wdem, sdem, gamma = _instance(0, 2, 3, 4)
+    with pytest.raises(ValueError, match="R=4"):
+        price_bundle_batch_torch(torch.from_numpy(price),
+                                 torch.from_numpy(free), wdem[:3], sdem,
+                                 gamma)
+
+
+@pytest.mark.parametrize("R,aligned,vec", [
+    (4, True, 2), (8, True, 2), (2, True, 2), (4, False, 1), (7, True, 1),
+    (1, True, 1), (3, False, 1),
+])
+def test_bundle_vec(R, aligned, vec):
+    assert bundle_vec(R, aligned) == vec
