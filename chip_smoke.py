@@ -15,6 +15,17 @@ paths:
     largest Fig. 6 point (H=100 machines, T=20 slots, 50 jobs, ethernet preset,
     workload_scale=0.3, batch=(50,200), quanta=20, seed 0) on the card
     and on the CPU, requiring identical decisions;
+  * the online simulator (``repro_torch.launch.sim``) at the JAX package's
+    largest simulator benchmark point (``benchmarks/bench_sim.py``
+    FULL_GRID row 2: 16 machines, a 16-slot lookahead window, the google
+    preset, 500 jobs at 6.0 arrivals a slot, failure rate 0.05, seed 0,
+    quanta 12, 48 calibration jobs): PD-ORS on the card after a warm-up
+    run and on the CPU, requiring an identical per-job decision log (every
+    offer's admission and schedule, every outcome) and utility within rel
+    1e-9, both offer kernels launched inside the event engine on every
+    plan and sweep; fifo, drf and dorm on the card and on the CPU with
+    identical logs; OASiS (R = 6 pseudo-resources) at the Fig. 6 point on
+    the card and on the CPU, identical decisions;
   * the serving path: the rmsnorm and flash-attention kernels (bf16 on
     the tensor cores, float32 on the CUDA cores) against their plain
     versions on the card, then Gemma-7B at full width and
@@ -31,7 +42,8 @@ It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
-(4, 3072); flash attention on both routes), and as its last line
+(4, 3072); flash attention on both routes; the offer kernels' launches
+on the sim path beside the static path's), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
@@ -63,6 +75,11 @@ PARITY_POINT = dict(arch="gemma-7b", layers=2, requests=2, prompt_len=128,
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
+# the online simulator: bench_sim.py's FULL_GRID row 2, not cut
+# (quanta 12 and 48 calibration jobs are launch.sim's, as bench_sim's)
+SIM_POINT = dict(machines=16, lookahead=16, preset="google", jobs=500,
+                 rate=6.0, failure_rate=0.05, seed=0)
+SIM_BASELINES = ("fifo", "drf", "dorm")
 
 
 def _card_line() -> str:
@@ -294,6 +311,149 @@ def device_busy_share(rt, trace) -> tuple:
                           getattr(ev, "self_cuda_time_total", 0.0))
                   for ev in prof.key_averages())
     return wall, busy_us / 1e6
+
+
+# ----------------------------------------------------------- online sim
+def _alloc(a) -> tuple:
+    return (tuple(sorted(a.workers.items())), tuple(sorted(a.ps.items())))
+
+
+def record_decisions(policy) -> list:
+    """Log every decision ``policy`` returns to the engine: each ARRIVAL
+    batch's admissions and committed schedules, each SLOT tick's grants."""
+    log = []
+    inner = policy.offer
+
+    def offer(event, view):
+        dec = inner(event, view)
+        if event.kind.name in ("ARRIVAL", "SLOT"):
+            log.append((
+                event.time, event.kind.name,
+                tuple(sorted(dec.admitted.items())),
+                tuple((j, tuple((t, _alloc(a)) for t, a in sorted(s.items())))
+                      for j, s in sorted(dec.schedules.items())),
+                tuple((j, _alloc(a)) for j, a in sorted(dec.grants.items())),
+            ))
+        return dec
+
+    policy.offer = offer
+    return log
+
+
+def run_sim(launch_sim, name: str, device: str, tracer=None) -> dict:
+    """One replay of the sim point through ``launch.sim``'s engine, with
+    the decision log and each job's outcome row kept."""
+    engine, events = launch_sim.make_engine(name, device=device,
+                                            tracer=tracer, **SIM_POINT)
+    log = record_decisions(engine.policy)
+    report, wall = launch_sim.run_engine(engine, events)
+    rows = [tuple(sorted(dataclasses.asdict(oc).items()))
+            for _, oc in sorted(engine.metrics.outcomes.items())]
+    return {"report": report, "engine": engine, "wall": wall,
+            "log": log, "rows": rows}
+
+
+def same_sim_run(a: dict, b: dict, what: str) -> None:
+    """Identical decision logs, outcome rows and summaries; utility within
+    rel 1e-9."""
+    if a["log"] != b["log"]:
+        i = next(i for i, (x, y) in enumerate(zip(a["log"], b["log"]))
+                 if x != y) if len(a["log"]) == len(b["log"]) else None
+        raise AssertionError(f"{what}: decision logs differ (first at "
+                             f"{i}: {a['log'][i] if i is not None else ''}"
+                             f" vs {b['log'][i] if i is not None else ''})")
+    if a["rows"] != b["rows"]:
+        raise AssertionError(f"{what}: per-job outcome rows differ")
+    sa, sb = a["report"].summary, b["report"].summary
+    ua, ub = sa["total_utility"], sb["total_utility"]
+    if {k: v for k, v in sa.items() if k != "total_utility"} != \
+            {k: v for k, v in sb.items() if k != "total_utility"} \
+            or a["report"].slots_run != b["report"].slots_run:
+        raise AssertionError(f"{what}: summaries differ")
+    if not (np.isfinite(ua) and abs(ua - ub) <= 1e-9 * abs(ub)):
+        raise AssertionError(f"{what}: utility {ua} != {ub}")
+
+
+def sim_line(name: str, device: str, r: dict) -> str:
+    s = r["report"].summary
+    return (f"  {name} on {device}: wall {r['wall']:.4f} s = "
+            f"{SIM_POINT['jobs'] / r['wall']:.2f} jobs/s, slots run "
+            f"{r['report'].slots_run}, admitted {s['jobs_admitted']}, "
+            f"completed {s['jobs_completed']}/{s['jobs_offered']}, "
+            f"preemptions {s['preemptions']}, utility "
+            f"{s['total_utility']!r}, JCT p50 {s['jct_p50']} p95 "
+            f"{s['jct_p95']}")
+
+
+def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
+    """The online simulator on the card against the CPU: PD-ORS, the three
+    slot-driven baselines, and OASiS at the Fig. 6 point."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    warm = run_sim(launch_sim, "pdors", "cuda")
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    tracer = trace.Tracer()
+    gpu = run_sim(launch_sim, "pdors", "cuda", tracer)
+    launches = {"price_bundle": pricing.LAUNCHES,
+                "minplus_sweep": minplus.LAUNCHES}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} kernel never launched in the "
+                                 f"online sim")
+    spans = {"plan.bundle": 0, "dp.sweep": 0}
+    for sp in tracer.spans:
+        if sp.name in spans:
+            spans[sp.name] += 1
+            if sp.attrs.get("backend") != "cuda":
+                raise AssertionError(f"{sp.name} ran on {sp.attrs}")
+    cpu = run_sim(launch_sim, "pdors", "cpu")
+    same_sim_run(gpu, cpu, "pdors cuda vs cpu")
+    same_sim_run(warm, gpu, "pdors warm-up vs counted run")
+    rows = [sim_line("pdors", "cuda", gpu), sim_line("pdors", "cpu", cpu)]
+    table = tracer.phase_table()
+    top = sorted(table.items(), key=lambda kv: -kv[1]["self_s"])[:10]
+    adm = gpu["engine"].admission_latency()
+
+    base = {}
+    for name in SIM_BASELINES:
+        g = run_sim(launch_sim, name, "cuda")
+        c = run_sim(launch_sim, name, "cpu")
+        same_sim_run(g, c, f"{name} cuda vs cpu")
+        rows += [sim_line(name, "cuda", g), sim_line(name, "cpu", c)]
+        base[name] = {"wall": g["wall"], "cpu_wall": c["wall"],
+                      "jobs_per_s": SIM_POINT["jobs"] / g["wall"]}
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_run = run_sim(launch_sim, "pdors", "cuda")
+    busy = sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()) / 1e6
+
+    # OASiS at the Fig. 6 point: the bundle kernel at R = 6
+    p = PAPER_POINT
+    jobs = rt.synthetic_jobs(rt.WorkloadConfig(
+        num_jobs=p["jobs"], horizon=p["horizon"], seed=p["seed"],
+        batch=p["batch"], workload_scale=p["workload_scale"]))
+    oasis = {}
+    for device in ("cuda", "cpu"):
+        pricing.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = rt.core.run_oasis(jobs, rt.make_cluster(
+            p["machines"], p["horizon"], preset=p["preset"], device=device),
+            quanta=p["quanta"], seed=p["seed"])
+        oasis[device] = (res, time.perf_counter() - t0, pricing.LAUNCHES)
+    if oasis["cuda"][2] <= 0:
+        raise AssertionError("OASiS never launched the bundle kernel")
+    if decision_trace(oasis["cuda"][0]) != decision_trace(oasis["cpu"][0]):
+        raise AssertionError("OASiS: cuda and cpu made different decisions")
+    uo, uc = oasis["cuda"][0].total_utility, oasis["cpu"][0].total_utility
+    if not (np.isfinite(uo) and abs(uo - uc) <= 1e-9 * abs(uc)):
+        raise AssertionError(f"OASiS utility {uo} != {uc}")
+    return {"gpu": gpu, "warm_wall": warm["wall"], "launches": launches,
+            "spans": spans, "rows": rows, "top": top, "admission": adm,
+            "baselines": base, "busy": busy, "prof_wall": prof_run["wall"],
+            "oasis": oasis, "wall": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------- times
@@ -681,6 +841,7 @@ def main() -> int:
     from repro_torch.kernels import _build, minplus, pricing
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import rmsnorm
+    from repro_torch.launch import sim as launch_sim
     from repro_torch.obs import trace
 
     # float32 products in full float32 on the card (the parity phase)
@@ -828,16 +989,49 @@ def main() -> int:
               f" {f['tflops']} TFLOP/s, {f['bound_share']} of the "
               f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
               f"{f['plain_ms']} ms, library {f['library_ms']} ms")
+    # 9. the online simulator on the card (the offer kernels inside the
+    # event engine), against the CPU; last, so its long profiled run
+    # comes after every kernel timing
+    on = online_sim(rt, launch_sim, trace, pricing, minplus)
+    sp = SIM_POINT
+    print(f"online sim (H={sp['machines']} W={sp['lookahead']} "
+          f"{sp['preset']} jobs={sp['jobs']} rate={sp['rate']} "
+          f"failure_rate={sp['failure_rate']} seed={sp['seed']} quanta="
+          f"{launch_sim.QUANTA}): decisions identical on cuda and cpu for pdors "
+          f"and {', '.join(SIM_BASELINES)}; phase wall {on['wall']:.2f} s; "
+          f"pdors warm-up run {on['warm_wall']:.4f} s")
+    for row in on["rows"]:
+        print(row)
+    adm = on["admission"]
+    print(f"online sim pdors (cuda): admission latency p50 "
+          f"{adm['p50_ms']:.3f} ms p99 {adm['p99_ms']:.3f} ms mean "
+          f"{adm['mean_ms']:.3f} ms over {int(adm['count'])} offers; "
+          f"launches {on['launches']}; spans {on['spans']} (all on cuda)")
+    print("online sim phases by self time (cuda run): " + ", ".join(
+        f"{name} {row['self_s']:.4f} s/{int(row['count'])}"
+        for name, row in on["top"]))
+    print(f"online sim device busy {on['busy']:.4f} s of a profiled "
+          f"{on['prof_wall']:.4f} s pdors run: idle share "
+          f"{1 - on['busy'] / on['prof_wall']:.4f}")
+    (ores, owall, olaunch), (cres, cwall, _) = on["oasis"]["cuda"], \
+        on["oasis"]["cpu"]
+    print(f"OASiS (Fig. 6 point, R=6): admitted {len(ores.admitted)}/"
+          f"{len(ores.records)} utility {ores.total_utility!r} (cpu "
+          f"{cres.total_utility!r}), identical decisions; cuda wall "
+          f"{owall:.4f} s, cpu {cwall:.4f} s; bundle launches {olaunch}")
+
     kernels = [
         {"name": "price_bundle", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/price_bundle.cu",
          "replaces": "src/repro/kernels/pricing.py:144",
          "launches": launches["price_bundle"],
+         "sim_launches": on["launches"]["price_bundle"],
          "max_abs_err": err["price_bundle"], **bnum},
         {"name": "minplus_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/minplus_sweep.cu",
          "replaces": "src/repro/kernels/minplus.py:124",
          "launches": launches["minplus_sweep"],
+         "sim_launches": on["launches"]["minplus_sweep"],
          "max_abs_err": err["minplus_sweep"], **snum},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",

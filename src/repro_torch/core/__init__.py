@@ -11,6 +11,9 @@ Public API:
     find_best_schedule, Schedule             — Algorithm 2
     PDORS, run_pdors, PDORSResult            — Algorithm 1
     SolvePlan, solve_plans, linprog_batch    — plan-then-solve pipeline
+    run_baseline, run_oasis                  — §5 baselines
+    offline_optimum                          — Fig. 10 offline OPT
+    CompetitiveBound, theorem5_bound         — Theorem 5's ratio
     synthetic_jobs, trace_jobs, arch_jobs    — §5 workload generators
 """
 from .job import (
@@ -26,9 +29,19 @@ from .subproblem import SubproblemConfig, ThetaResult, solve_theta
 from .dp import WorkloadDP
 from .schedule import Schedule, find_best_schedule
 from .pdors import PDORS, PDORSResult, run_pdors
+from .baselines import run_baseline, run_oasis, SimOutcome
+from .offline import offline_optimum
 from .workload import WorkloadConfig, synthetic_jobs, trace_jobs, arch_jobs
 from .lp import linprog, linprog_batch, LPResult
 from .solve_plan import SolvePlan, solve_plans
+from .rounding import (
+    g_delta_packing,
+    g_delta_cover,
+    approximation_ratio,
+    randomized_round,
+    round_until_feasible,
+)
+from .theory import CompetitiveBound, theorem5_bound
 
 __all__ = [
     "JobSpec", "SigmoidUtility", "Allocation",
@@ -38,7 +51,12 @@ __all__ = [
     "SubproblemConfig", "ThetaResult", "solve_theta",
     "WorkloadDP", "Schedule", "find_best_schedule",
     "PDORS", "PDORSResult", "run_pdors",
+    "run_baseline", "run_oasis", "SimOutcome",
+    "offline_optimum",
     "WorkloadConfig", "synthetic_jobs", "trace_jobs", "arch_jobs",
     "linprog", "linprog_batch", "LPResult",
     "SolvePlan", "solve_plans",
+    "g_delta_packing", "g_delta_cover", "approximation_ratio",
+    "randomized_round", "round_until_feasible",
+    "CompetitiveBound", "theorem5_bound",
 ]

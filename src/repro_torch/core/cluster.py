@@ -319,7 +319,7 @@ class Cluster:
         Row 0 — the slot that just elapsed — drops off the front and a zero
         row appears at the back, so index k afterwards refers to the slot
         that was index k+steps before. The static PD-ORS path never calls
-        this; ``repro.sim`` advances the window as wall-clock slots elapse.
+        this; ``repro_torch.sim`` advances the window as wall-clock slots elapse.
         All derived caches invalidate via the version bump."""
         if steps <= 0:
             return

@@ -392,3 +392,71 @@ def test_reduced_serving_launches_both_kernels_and_matches_cpu(cuda):
                       cache_len=128).serve(reqs)
     for g, c in zip(gpu, cpu):
         np.testing.assert_array_equal(g.tokens, c.tokens)
+
+
+# ------------------------------------------------------ online simulator
+# the smoke grid's pdors at test_torch_pdors.py's GOLDEN seeds, and the
+# three slot-driven baselines
+SIM_CASES = [("pdors", 0), ("pdors", 3), ("pdors", 7), ("pdors", 11),
+             ("fifo", 0), ("drf", 0), ("dorm", 0)]
+
+
+@pytest.mark.parametrize("name,seed", SIM_CASES)
+def test_sim_on_the_card_matches_numpy_backend(cuda, name, seed):
+    """The online simulator on a CUDA ledger decides as ``repro.sim`` on
+    the numpy backend: identical decision logs and summaries, utility
+    within rel 1e-9; pdors launches both offer kernels on every plan and
+    sweep."""
+    from repro_torch.obs import trace
+    from test_torch_sim import (SMOKE, assert_same_run, make_port_engine,
+                                make_ref_engine, run_logged)
+    point = dict(SMOKE, seed=seed)
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    tracer = trace.Tracer()
+    with trace.activate(tracer):
+        got = run_logged(*make_port_engine(name, device=cuda, **point))
+    want = run_logged(*make_ref_engine(name, **point))
+    assert_same_run(got, want)
+    if name == "pdors":
+        spans = [sp for sp in tracer.spans
+                 if sp.name in ("plan.bundle", "dp.sweep")]
+        assert {sp.attrs["backend"] for sp in spans} == {"cuda"}
+        # every plan's bundle is one launch; offers built outside a plan
+        # launch per slot snapshot
+        assert pricing.LAUNCHES >= sum(sp.name == "plan.bundle"
+                                       for sp in spans) > 0
+        assert minplus.LAUNCHES == sum(sp.name == "dp.sweep"
+                                       for sp in spans) > 0
+
+
+def test_full_sim_point_on_the_card_matches_numpy_backend(cuda):
+    """chip_smoke.py's sim point (bench_sim.py's FULL_GRID row 2, 500
+    jobs on 16 machines), pdors on the card against the numpy backend."""
+    from test_torch_sim import (assert_same_run, make_port_engine,
+                                make_ref_engine, run_logged)
+    point = dict(machines=16, lookahead=16, preset="google", jobs=500,
+                 rate=6.0, failure_rate=0.05, seed=0, quanta=12,
+                 calib_jobs=48)
+    got = run_logged(*make_port_engine("pdors", device=cuda, **point))
+    want = run_logged(*make_ref_engine("pdors", **point))
+    assert_same_run(got, want)
+
+
+def test_run_oasis_on_the_card_matches_cpu(cuda):
+    """OASiS's two pseudo-resources: the bundle kernel at R = 6."""
+    cfg = rt.WorkloadConfig(num_jobs=10, horizon=12, seed=6, batch=(20, 100),
+                            workload_scale=0.1)
+    pricing.LAUNCHES = 0
+    gpu = rt.core.run_oasis(rt.synthetic_jobs(cfg), rt.make_cluster(8, 12),
+                            quanta=12)
+    assert pricing.LAUNCHES > 0
+    cpu = rt.core.run_oasis(rt.synthetic_jobs(cfg),
+                            rt.make_cluster(8, 12, device="cpu"), quanta=12)
+    trace_of = [(r.job.job_id, r.admitted, None if r.schedule is None else
+                 {t: (sorted(a.workers.items()), sorted(a.ps.items()))
+                  for t, a in r.schedule.slots.items()})
+                for res in (gpu, cpu) for r in res.records]
+    half = len(trace_of) // 2
+    assert trace_of[:half] == trace_of[half:]
+    assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)

@@ -32,7 +32,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.models.layers", "repro_torch.models.attention",
                  "repro_torch.models.blocks", "repro_torch.models.lm",
                  "repro_torch.models.api", "repro_torch.serve.engine",
-                 "repro_torch.launch.serve", "repro_torch.convert"):
+                 "repro_torch.launch.serve", "repro_torch.convert",
+                 "repro_torch.sim", "repro_torch.sim.engine",
+                 "repro_torch.core.baselines", "repro_torch.core._reference",
+                 "repro_torch.launch.sim"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
