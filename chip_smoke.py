@@ -26,6 +26,22 @@ paths:
     plan and sweep; fifo, drf and dorm on the card and on the CPU with
     identical logs; OASiS (R = 6 pseudo-resources) at the Fig. 6 point on
     the card and on the CPU, identical decisions;
+  * the simulator's other paths (``launch.sim``'s tiers), each on the card
+    against the CPU with both offer kernels launched: the sim point with
+    ``bench_sim.py``'s chaos leg (rack-pair crashes and stragglers in the
+    capacity mask, injected LP faults, pdors wrapped in
+    ``ResilientPolicy``), identical decision logs, summaries and policy
+    health; the same run checkpointed every 16 slots, killed at slot 64
+    and recovered (summary, outcomes and ledger equal the uninterrupted
+    run's; the checkpoint's and the restored ledgers on the card);
+    ``bench_sim.py``'s elastic tier (8 machines, W = 16, google, 300 jobs
+    at 4.0, failure 0.05, its reshape storm), batched and per-event
+    engines bit-identical on the card and the batched run identical on
+    the CPU; its service row (8 machines, W = 16, google, 1500 jobs at 4.0
+    submitted 64 at a time through the asyncio ``OfferService``), each
+    formed batch offered again through ``PDORS.offer_batch`` on the CPU
+    with identical admissions; and, last, one profiled chaos run (idle
+    share, spans by self time);
   * the serving path: the rmsnorm and flash-attention kernels (bf16 on
     the tensor cores, float32 on the CUDA cores) against their plain
     versions on the card, then Gemma-7B at full width and
@@ -43,7 +59,8 @@ line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
 (4, 3072); flash attention on both routes; the offer kernels' launches
-on the sim path beside the static path's), and as its last line
+on the sim path beside the static path's, and on each of the chaos,
+recover, elastic and service paths), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
@@ -80,6 +97,15 @@ PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
 SIM_POINT = dict(machines=16, lookahead=16, preset="google", jobs=500,
                  rate=6.0, failure_rate=0.05, seed=0)
 SIM_BASELINES = ("fifo", "drf", "dorm")
+# the chaos and recover phases run the sim point with bench_sim's chaos
+# leg; the recover phase checkpoints every 16 slots and is killed at 64
+RECOVER = dict(checkpoint_every=16, kill_at=64)
+# bench_sim.py's ELASTIC_GRID row and STREAM_GRID row (the service row
+# takes min(jobs, 1500) of its trace), not cut
+ELASTIC_POINT = dict(machines=8, lookahead=16, preset="google", jobs=300,
+                     rate=4.0, failure_rate=0.05, seed=0)
+SERVICE_POINT = dict(machines=8, lookahead=16, preset="google",
+                     jobs=100_000, rate=4.0, seed=0)
 
 
 def _card_line() -> str:
@@ -273,9 +299,10 @@ def check_kernels(pricing, minplus) -> dict:
 
 
 # ------------------------------------------------------------ main path
-def decision_trace(res):
+def decision_trace(records) -> list:
+    """(job id, admitted, slot -> (workers, PSs)) of each record."""
     out = []
-    for r in res.records:
+    for r in records:
         slots = None
         if r.schedule is not None:
             slots = {t: (sorted(a.workers.items()), sorted(a.ps.items()))
@@ -340,17 +367,23 @@ def record_decisions(policy) -> list:
     return log
 
 
-def run_sim(launch_sim, name: str, device: str, tracer=None) -> dict:
-    """One replay of the sim point through ``launch.sim``'s engine, with
-    the decision log and each job's outcome row kept."""
+def outcome_rows(engine) -> list:
+    return [tuple(sorted(dataclasses.asdict(oc).items()))
+            for _, oc in sorted(engine.metrics.outcomes.items())]
+
+
+def run_sim(launch_sim, name: str, device: str, tracer=None,
+            point=SIM_POINT, **tier) -> dict:
+    """One replay of ``point`` (default: the sim point) through
+    ``launch.sim``'s engine, with the decision log and each job's outcome
+    row kept; ``tier`` passes ``faults``, ``elastic`` or ``engine_mode``
+    on to ``make_engine``."""
     engine, events = launch_sim.make_engine(name, device=device,
-                                            tracer=tracer, **SIM_POINT)
+                                            tracer=tracer, **point, **tier)
     log = record_decisions(engine.policy)
     report, wall = launch_sim.run_engine(engine, events)
-    rows = [tuple(sorted(dataclasses.asdict(oc).items()))
-            for _, oc in sorted(engine.metrics.outcomes.items())]
     return {"report": report, "engine": engine, "wall": wall,
-            "log": log, "rows": rows}
+            "log": log, "rows": outcome_rows(engine)}
 
 
 def same_sim_run(a: dict, b: dict, what: str) -> None:
@@ -385,6 +418,29 @@ def sim_line(name: str, device: str, r: dict) -> str:
             f"{s['jct_p95']}")
 
 
+def _launches(pricing, minplus) -> dict:
+    return {"price_bundle": pricing.LAUNCHES,
+            "minplus_sweep": minplus.LAUNCHES}
+
+
+def _require_launches(launches: dict, what: str) -> None:
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} kernel never launched in {what}")
+
+
+def _require_cuda_spans(tracer, what: str) -> dict:
+    spans = {"plan.bundle": 0, "dp.sweep": 0}
+    for sp in tracer.spans:
+        if sp.name in spans:
+            spans[sp.name] += 1
+            if sp.attrs.get("backend") != "cuda":
+                raise AssertionError(f"{what}: {sp.name} ran on {sp.attrs}")
+    if not all(spans.values()):
+        raise AssertionError(f"{what}: no offer spans {spans}")
+    return spans
+
+
 def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
     """The online simulator on the card against the CPU: PD-ORS, the three
     slot-driven baselines, and OASiS at the Fig. 6 point."""
@@ -395,18 +451,9 @@ def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
     minplus.LAUNCHES = 0
     tracer = trace.Tracer()
     gpu = run_sim(launch_sim, "pdors", "cuda", tracer)
-    launches = {"price_bundle": pricing.LAUNCHES,
-                "minplus_sweep": minplus.LAUNCHES}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} kernel never launched in the "
-                                 f"online sim")
-    spans = {"plan.bundle": 0, "dp.sweep": 0}
-    for sp in tracer.spans:
-        if sp.name in spans:
-            spans[sp.name] += 1
-            if sp.attrs.get("backend") != "cuda":
-                raise AssertionError(f"{sp.name} ran on {sp.attrs}")
+    launches = _launches(pricing, minplus)
+    _require_launches(launches, "the online sim")
+    spans = _require_cuda_spans(tracer, "online sim")
     cpu = run_sim(launch_sim, "pdors", "cpu")
     same_sim_run(gpu, cpu, "pdors cuda vs cpu")
     same_sim_run(warm, gpu, "pdors warm-up vs counted run")
@@ -445,7 +492,8 @@ def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
         oasis[device] = (res, time.perf_counter() - t0, pricing.LAUNCHES)
     if oasis["cuda"][2] <= 0:
         raise AssertionError("OASiS never launched the bundle kernel")
-    if decision_trace(oasis["cuda"][0]) != decision_trace(oasis["cpu"][0]):
+    if decision_trace(oasis["cuda"][0].records) != \
+            decision_trace(oasis["cpu"][0].records):
         raise AssertionError("OASiS: cuda and cpu made different decisions")
     uo, uc = oasis["cuda"][0].total_utility, oasis["cpu"][0].total_utility
     if not (np.isfinite(uo) and abs(uo - uc) <= 1e-9 * abs(uc)):
@@ -454,6 +502,205 @@ def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
             "spans": spans, "rows": rows, "top": top, "admission": adm,
             "baselines": base, "busy": busy, "prof_wall": prof_run["wall"],
             "oasis": oasis, "wall": time.perf_counter() - t_phase}
+
+
+# ----------------------------------- chaos, recovery, elastic, service
+def _ledger_on_card(cl, what: str, read: bool) -> None:
+    """The cluster's ledger is a CUDA tensor, and every version-keyed
+    cache that claims the current version agrees with a fresh read of it;
+    ``read`` also reads every slot through the caches."""
+    if cl._used.device.type != "cuda":
+        raise AssertionError(f"{what}: ledger on {cl._used.device}")
+    used = cl.backend.to_host(cl._used)
+    free = cl.capacity_matrix[None] - used
+    for name, want in (("_used_host", used), ("_free_host", free)):
+        ent = getattr(cl, name)
+        if ent is not None and ent[0] == cl.version and \
+                not np.array_equal(ent[1], want):
+            raise AssertionError(f"{what}: stale {name}")
+    if read:
+        for t in range(cl.horizon):
+            if not (np.array_equal(cl.used_matrix(t), used[t]) and
+                    np.array_equal(cl.free_matrix(t), free[t])):
+                raise AssertionError(f"{what}: cached slot {t} is stale")
+
+
+def chaos_sim(launch_sim, trace, pricing, minplus) -> dict:
+    """The sim point with bench_sim's chaos leg (crashes and stragglers
+    over rack pairs, injected LP faults, pdors resilient-wrapped) on the
+    card and on the CPU: identical decision logs, outcomes, summaries and
+    policy health; both kernels launched, every offer span on cuda; the
+    capacity-mask overcommit checks (each a whole-ledger copy to the
+    host) counted."""
+    from repro_torch.core.cluster import Cluster
+    t_phase = time.perf_counter()
+    checks = [0]
+    overcommitted = Cluster.machine_overcommitted
+
+    def counted(self, h, tol=1e-6):
+        checks[0] += 1
+        return overcommitted(self, h, tol)
+
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    tracer = trace.Tracer()
+    Cluster.machine_overcommitted = counted
+    try:
+        gpu = run_sim(launch_sim, "pdors", "cuda", tracer, faults=True)
+    finally:
+        Cluster.machine_overcommitted = overcommitted
+    launches = _launches(pricing, minplus)
+    _require_launches(launches, "the chaos run")
+    spans = _require_cuda_spans(tracer, "chaos")
+    cpu = run_sim(launch_sim, "pdors", "cpu", faults=True)
+    same_sim_run(gpu, cpu, "chaos pdors cuda vs cpu")
+    return {"gpu": gpu, "cpu_wall": cpu["wall"], "launches": launches,
+            "spans": spans, "overcommit_checks": checks[0],
+            "admission": gpu["engine"].admission_latency(),
+            "wall": time.perf_counter() - t_phase}
+
+
+def recover_sim(launch_sim, pricing, minplus, want: dict) -> dict:
+    """The chaos run on the card, checkpointed every 16 slots and killed
+    at slot 64, then recovered from the regenerated stream: the snapshot
+    and the restored ledger are on the card with fresh caches, and the
+    recovered summary, slot count and outcome rows equal the
+    uninterrupted cuda run's (``want``)."""
+    from repro_torch.sim import SimKilled
+    engine, events = launch_sim.make_engine("pdors", device="cuda",
+                                            faults=True, **SIM_POINT,
+                                            **RECOVER)
+    taken = [0]
+    take = engine._take_checkpoint
+
+    def counted(t):
+        taken[0] += 1
+        take(t)
+
+    engine._take_checkpoint = counted
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        engine.run(events)
+    except SimKilled:
+        pass
+    else:
+        raise AssertionError("the recover run was not killed")
+    killed_wall = time.perf_counter() - t0
+    snap = engine._checkpoint
+    _ledger_on_card(snap.state[0].cluster, "checkpoint", read=False)
+    t0 = time.perf_counter()
+    report = engine.recover(launch_sim.make_events(faults=True, **SIM_POINT))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(pricing, minplus)
+    _require_launches(launches, "the recover run")
+    _ledger_on_card(engine.window.cluster, "recovered ledger", read=True)
+    if report.summary != want["report"].summary or \
+            report.slots_run != want["report"].slots_run:
+        raise AssertionError("recovered summary != uninterrupted summary")
+    if outcome_rows(engine) != want["rows"]:
+        raise AssertionError("recovered outcome rows differ")
+    if not torch.equal(engine.window.cluster._used,
+                       want["engine"].window.cluster._used):
+        raise AssertionError("recovered ledger differs")
+    return {"checkpoints": taken[0], "slot": snap.slot,
+            "consumed": snap.consumed, "killed_wall": killed_wall,
+            "wall": wall, "launches": launches}
+
+
+def elastic_sim(launch_sim, trace, pricing, minplus) -> dict:
+    """bench_sim's elastic tier, pdors: the reshape storm through the
+    batched engine on the card (counted), the per-event oracle on the card
+    (bit-identical: summary, slots, ledger, journal, outcomes) and the
+    batched engine on the CPU (identical decision logs)."""
+    t_phase = time.perf_counter()
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    tracer = trace.Tracer()
+    gb = run_sim(launch_sim, "pdors", "cuda", tracer, point=ELASTIC_POINT,
+                 elastic=True, engine_mode="batched")
+    launches = _launches(pricing, minplus)
+    _require_launches(launches, "the elastic run")
+    spans = _require_cuda_spans(tracer, "elastic")
+    ge = run_sim(launch_sim, "pdors", "cuda", point=ELASTIC_POINT,
+                 elastic=True, engine_mode="event")
+    eb, ee = gb["engine"], ge["engine"]
+    if gb["report"].summary != ge["report"].summary or \
+            gb["report"].slots_run != ge["report"].slots_run or \
+            not torch.equal(eb.window.cluster._used,
+                            ee.window.cluster._used) or \
+            eb.journal != ee.journal or \
+            eb.metrics.outcomes != ee.metrics.outcomes:
+        raise AssertionError("elastic: batched and event engines differ")
+    cb = run_sim(launch_sim, "pdors", "cpu", point=ELASTIC_POINT,
+                 elastic=True, engine_mode="batched")
+    same_sim_run(gb, cb, "elastic pdors cuda vs cpu")
+    return {"gpu": gb, "event_wall": ge["wall"], "cpu_wall": cb["wall"],
+            "launches": launches, "spans": spans,
+            "wall": time.perf_counter() - t_phase}
+
+
+def service_sim(launch_sim, pricing, minplus) -> dict:
+    """bench_sim's service row on the card: jobs submitted 64 at a time
+    through the asyncio ``OfferService``; each batch it formed (how they
+    form depends on timing) is offered again through ``PDORS.offer_batch``
+    on the CPU, requiring the same admissions and schedules."""
+    sched, jobs = launch_sim.make_service_point(device="cuda",
+                                                **SERVICE_POINT)
+    batches = []
+    offer_batch = sched.offer_batch
+
+    def recorded(batch):
+        batches.append([j.job_id for j in batch])
+        return offer_batch(batch)
+
+    sched.offer_batch = recorded
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    run = launch_sim.drive_service(sched, jobs, SERVICE_POINT["machines"])
+    launches = _launches(pricing, minplus)
+    _require_launches(launches, "the service run")
+    if len(batches) != run["batches"] or \
+            sorted(i for b in batches for i in b) != \
+            sorted(j.job_id for j in jobs):
+        raise AssertionError("service: batches do not cover the jobs")
+    cpu, cpu_jobs = launch_sim.make_service_point(device="cpu",
+                                                  **SERVICE_POINT)
+    by_id = {j.job_id: j for j in cpu_jobs}
+    t0 = time.perf_counter()
+    want = [r for b in batches
+            for r in cpu.offer_batch([by_id[i] for i in b])]
+    cpu_wall = time.perf_counter() - t0
+    got = sorted(decision_trace(run["records"]), key=lambda d: d[0])
+    if got != sorted(decision_trace(want), key=lambda d: d[0]):
+        raise AssertionError("service: cuda and cpu admissions differ")
+    admitted = sum(1 for r in run["records"] if r.admitted)
+    if run["grants"] != admitted:
+        raise AssertionError(f"service: {run['grants']} grants polled for "
+                             f"{admitted} admissions")
+    return {"jobs": len(jobs), "admitted": admitted,
+            "batches": run["batches"],
+            "sizes": sorted({len(b) for b in batches}),
+            "wall": run["wall"], "cpu_wall": cpu_wall,
+            "latency": run["latency"], "launches": launches}
+
+
+def chaos_profiled(launch_sim, trace) -> dict:
+    """One cuda chaos run under torch.profiler and a tracer: the device's
+    busy time (summed self device time of every kernel and copy) and the
+    top spans by self time."""
+    from torch.profiler import ProfilerActivity, profile
+    tracer = trace.Tracer()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = run_sim(launch_sim, "pdors", "cuda", tracer, faults=True)
+    busy = sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()) / 1e6
+    top = sorted(tracer.phase_table().items(),
+                 key=lambda kv: -kv[1]["self_s"])[:10]
+    return {"wall": r["wall"], "busy": busy, "top": top}
 
 
 # ---------------------------------------------------------------- times
@@ -875,14 +1122,10 @@ def main() -> int:
     pricing.LAUNCHES = 0
     minplus.LAUNCHES = 0
     jobs, res_gpu, wall_gpu, tr = run_main_path(rt, trace, "cuda")
-    launches = {"price_bundle": pricing.LAUNCHES,
-                "minplus_sweep": minplus.LAUNCHES}
+    launches = _launches(pricing, minplus)
     _, res_cpu, wall_cpu, _ = run_main_path(rt, trace, "cpu")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} kernel never launched on the "
-                                 f"main path")
-    if decision_trace(res_gpu) != decision_trace(res_cpu):
+    _require_launches(launches, "the main path")
+    if decision_trace(res_gpu.records) != decision_trace(res_cpu.records):
         raise AssertionError("cuda and cpu runs made different decisions")
     u_gpu, u_cpu = res_gpu.total_utility, res_cpu.total_utility
     if not (np.isfinite(u_gpu) and abs(u_gpu - u_cpu) <= 1e-9 * abs(u_cpu)):
@@ -1020,18 +1263,96 @@ def main() -> int:
           f"{cres.total_utility!r}), identical decisions; cuda wall "
           f"{owall:.4f} s, cpu {cwall:.4f} s; bundle launches {olaunch}")
 
+    # 10. the chaos leg, a kill and recover, the elastic storm and the
+    # offer service on the card, against the CPU; then one profiled chaos
+    # run, last
+    ch = chaos_sim(launch_sim, trace, pricing, minplus)
+    s = ch["gpu"]["report"].summary
+    hl = s["policy_health"]
+    print(f"chaos (the sim point with bench_sim's chaos leg, pdors "
+          f"resilient-wrapped): decisions, outcomes, summaries and policy "
+          f"health identical on cuda and cpu; {s['machine_incidents']} "
+          f"incidents, {ch['gpu']['report'].slots_run} slots, admitted "
+          f"{s['jobs_admitted']}/{s['jobs_offered']}, completed "
+          f"{s['jobs_completed']}, preemptions {s['preemptions']}, "
+          f"evicted {s['jobs_evicted']}, utility {s['total_utility']!r}, "
+          f"goodput {s['goodput_fraction']!r}, availability "
+          f"{s['machine_availability']!r}, MTTR {s['mttr']!r}; resilient "
+          f"offers {hl['offers']}, solver faults {hl['solver_faults']}, "
+          f"retries {hl['retries']}, retry recoveries "
+          f"{hl['retry_recoveries']}, fallbacks {hl['fallbacks']} "
+          f"({hl['fallback_admits']} admitted)")
+    adm = ch["admission"]
+    print(f"chaos pdors: cuda wall {ch['gpu']['wall']:.4f} s = "
+          f"{SIM_POINT['jobs'] / ch['gpu']['wall']:.2f} jobs/s, cpu wall "
+          f"{ch['cpu_wall']:.4f} s; admission latency p50 "
+          f"{adm['p50_ms']:.3f} ms p99 {adm['p99_ms']:.3f} ms; launches "
+          f"{ch['launches']}; spans {ch['spans']} (all on cuda); "
+          f"overcommit checks (whole-ledger host copies) "
+          f"{ch['overcommit_checks']}; phase wall {ch['wall']:.2f} s")
+    rc = recover_sim(launch_sim, pricing, minplus, ch["gpu"])
+    print(f"recover (checkpoint every {RECOVER['checkpoint_every']} slots, "
+          f"killed at slot {RECOVER['kill_at']}): {rc['checkpoints']} "
+          f"checkpoints taken across the killed run and the recovery, "
+          f"restored from slot {rc['slot']} ({rc['consumed']} events "
+          f"consumed); killed run {rc['killed_wall']:.4f} s, "
+          f"recovery {rc['wall']:.4f} s; summary, slots, outcomes and "
+          f"ledger equal the uninterrupted cuda run's; checkpoint and "
+          f"restored ledgers on the card; launches {rc['launches']}")
+    el = elastic_sim(launch_sim, trace, pricing, minplus)
+    s = el["gpu"]["report"].summary
+    ep = ELASTIC_POINT
+    print(f"elastic (H={ep['machines']} W={ep['lookahead']} {ep['preset']} "
+          f"jobs={ep['jobs']} rate={ep['rate']} failure_rate="
+          f"{ep['failure_rate']}, bench_sim's ELASTIC_KNOBS, pdors): "
+          f"batched == event on cuda bit for bit, batched identical on cuda "
+          f"and cpu; reshapes {s['reshapes']}, admitted "
+          f"{s['jobs_admitted']}/{s['jobs_offered']}, deadlines "
+          f"{s['deadline_hits']}/{s['deadline_jobs']}, SLOs "
+          f"{s['slo_hits']}/{s['slo_jobs']}, utility "
+          f"{s['total_utility']!r}; batched cuda {el['gpu']['wall']:.4f} "
+          f"s, event cuda {el['event_wall']:.4f} s, batched cpu "
+          f"{el['cpu_wall']:.4f} s; launches {el['launches']}; spans "
+          f"{el['spans']} (all on cuda); phase wall {el['wall']:.2f} s")
+    sv2 = service_sim(launch_sim, pricing, minplus)
+    lat = sv2["latency"]
+    print(f"service (H={SERVICE_POINT['machines']} W="
+          f"{SERVICE_POINT['lookahead']} {SERVICE_POINT['preset']}, "
+          f"{sv2['jobs']} jobs in chunks of {launch_sim.SERVICE_CHUNK}, "
+          f"batch window {launch_sim.SERVICE_WINDOW * 1e3} ms): admitted "
+          f"{sv2['admitted']}/{sv2['jobs']} in {sv2['batches']} batches "
+          f"(sizes {sv2['sizes']}), identical to offer_batch on cpu per "
+          f"batch; {sv2['jobs'] / sv2['wall']:.2f} offers/s (wall "
+          f"{sv2['wall']:.4f} s, cpu replay {sv2['cpu_wall']:.4f} s), "
+          f"admission latency p50 {lat['p50_ms']:.3f} ms p99 "
+          f"{lat['p99_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms; launches "
+          f"{sv2['launches']}")
+    cp = chaos_profiled(launch_sim, trace)
+    print(f"chaos device busy {cp['busy']:.4f} s of a profiled "
+          f"{cp['wall']:.4f} s pdors run: idle share "
+          + (f"{1 - cp['busy'] / cp['wall']:.4f}" if cp["busy"] > 0 else
+             "not measured (the profiler recorded no device time)"))
+    print("chaos phases by self time (profiled cuda run): " + ", ".join(
+        f"{name} {row['self_s']:.4f} s/{int(row['count'])}"
+        for name, row in cp["top"]))
+    paths = {"chaos": ch, "recover": rc, "elastic": el, "service": sv2}
+
     kernels = [
         {"name": "price_bundle", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/price_bundle.cu",
          "replaces": "src/repro/kernels/pricing.py:144",
          "launches": launches["price_bundle"],
          "sim_launches": on["launches"]["price_bundle"],
+         **{f"{k}_launches": v["launches"]["price_bundle"]
+            for k, v in paths.items()},
          "max_abs_err": err["price_bundle"], **bnum},
         {"name": "minplus_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/minplus_sweep.cu",
          "replaces": "src/repro/kernels/minplus.py:124",
          "launches": launches["minplus_sweep"],
          "sim_launches": on["launches"]["minplus_sweep"],
+         **{f"{k}_launches": v["launches"]["minplus_sweep"]
+            for k, v in paths.items()},
          "max_abs_err": err["minplus_sweep"], **snum},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",

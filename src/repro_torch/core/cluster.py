@@ -74,10 +74,10 @@ class Cluster:
         for h, m in enumerate(self.machines):
             for r, c in m.capacity.items():
                 self.capacity_matrix[h, self.res_index[r]] = c
-        # fault-domain capacity mask (repro.sim.faults): nominal capacities
-        # are kept in _base_capacity; a mask entry < 1 models a degraded
-        # machine (0 = crashed) and scales every derived tensor — free,
-        # prices, fits — through capacity_matrix. None means no mask has
+        # fault-domain capacity mask (repro_torch.sim.faults): nominal
+        # capacities are kept in _base_capacity; a mask entry < 1 models a
+        # degraded machine (0 = crashed) and scales every derived tensor —
+        # free, prices, fits — through capacity_matrix. None means no mask has
         # ever been applied and capacity_matrix IS _base_capacity (same
         # object), so clean runs keep the exact pre-mask bit patterns.
         self._base_capacity = self.capacity_matrix
@@ -181,7 +181,7 @@ class Cluster:
         return self._capacity_mask.copy()
 
     def set_capacity_mask(self, mask) -> None:
-        """Install per-machine capacity factors (repro.sim fault domains).
+        """Install per-machine capacity factors (repro_torch.sim fault domains).
 
         ``capacity_matrix`` becomes ``_base_capacity * mask[:, None]``, so
         every derived tensor — free, prices (a zeroed row prices at the U^r

@@ -142,8 +142,8 @@ class PDORS:
         rng stream in exactly the per-offer order, and stale plans are
         never consumed (``SolvePlan.fresh`` — the DP replaces them) — so
         decisions match one-at-a-time ``offer`` calls exactly; the
-        event-driven simulator (``repro.sim``) uses the same pattern per
-        arrival batch."""
+        event-driven simulator (``repro_torch.sim``) uses the same pattern
+        per arrival batch."""
         out: List[AdmissionRecord] = []
         with _trace.span("offer.batch", jobs=len(jobs)):
             self.prices.prewarm()

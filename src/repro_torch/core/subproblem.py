@@ -63,10 +63,12 @@ class SolverFault(RuntimeError):
     """The external-LP solve path failed (or was made to fail).
 
     Raised by ``SubproblemConfig.lp_fault_hook`` at an LP dispatch site to
-    model a crashed/misbehaving solver. Lives in core (not ``repro.sim``)
-    so the dispatch sites can raise it without a core -> sim import;
-    ``repro.sim.faults`` injects it and ``ResilientPolicy`` contains it
-    with a retry-then-fallback ladder."""
+    model a crashed/misbehaving solver. Lives in core (not
+    ``repro_torch.sim``) so the dispatch sites can raise it without a
+    core -> sim import; ``repro_torch.sim.faults`` injects it and
+    ``ResilientPolicy`` contains it with a retry-then-fallback ladder. It
+    subclasses ``RuntimeError``, as a kernel's launch error does, and the
+    ladder catches ``SolverFault`` alone, so a launch error propagates."""
 
 
 class SolverTimeout(SolverFault):
@@ -129,10 +131,10 @@ class SubproblemConfig:
     # per-(t, v) loop in both rng modes; False forces the loop (parity
     # tests / debugging).
     use_plan: bool = True
-    # chaos-harness fault injection (repro.sim.faults): when set, the hook
-    # is invoked with a context string ("lp" lazy per-candidate, "lp_batch"
-    # plan-time batched dispatch) immediately before each external-LP
-    # solve, and may raise SolverFault/SolverTimeout to simulate a solver
+    # chaos-harness fault injection (repro_torch.sim.faults): when set,
+    # the hook is invoked with a context string ("lp" lazy per-candidate,
+    # "lp_batch" plan-time batched dispatch) immediately before each
+    # external-LP solve, and may raise SolverFault/SolverTimeout to simulate a solver
     # failure. None (the default) costs nothing and changes nothing.
     lp_fault_hook: Optional[Callable[[str], None]] = None
 

@@ -82,9 +82,9 @@ def draw_job(
     """Draw one job's parameters from ``rng`` (the §5 synthetic ranges).
 
     This is the loop body of ``synthetic_jobs`` factored out so streaming
-    generators (``repro.sim.traces``) can call it with a per-job *derived*
-    generator — every (job_id, parameter) pair is then reproducible without
-    replaying the whole sequential stream. The draw order is frozen: E, K,
+    generators (``repro_torch.sim.traces``) can call it with a per-job
+    *derived* generator — every (job_id, parameter) pair is then
+    reproducible without replaying the whole sequential stream. The draw order is frozen: E, K,
     F, g, tau, gamma, b_int, worker demands, PS demands, utility."""
     E = int(rng.integers(cfg.epochs[0], cfg.epochs[1] + 1))
     K = int(rng.integers(cfg.samples[0], cfg.samples[1] + 1))

@@ -23,16 +23,17 @@ its price-tensor construction across the burst (``PriceTable.prewarm``).
 
 Fault model and recovery
 ------------------------
-The engine folds machine incidents (MACHINE_DOWN / MACHINE_UP events)
-into the cluster's capacity mask and evicts displaced jobs through the
-PREEMPT path; ``ResilientPolicy`` contains solver faults with a
-retry-then-greedy-fallback ladder; ``checkpoint_every`` and
-``SimEngine.recover()`` resume a killed run. A ledger violation raises
-``LedgerInvariantError`` with the partial report and journal tail. The
-chaos harness that generates faults — ``FaultPlan``, ``FaultIncident``,
-``SolverFaultInjector``, ``merge_event_streams`` — and the asyncio
-``OfferService`` come in slice 7 of the port (``ROADMAP.md``), and so do
-the checks that hold these paths to the JAX package.
+``faults.FaultPlan`` generates machine crash/straggler incidents (and an
+LP-dispatch solver-fault hook) under derived per-(machine, incident)
+seeds, the same seeds as the JAX package's; the engine folds active
+incidents into the cluster's capacity mask and evicts displaced jobs
+through the PREEMPT path. ``ResilientPolicy`` contains solver faults with
+a retry-then-greedy-fallback ladder so an offer is never dropped; it
+catches ``SolverFault`` only, so a kernel's launch error propagates. The
+engine checkpoints its state every K slots (a deep copy, the device
+ledger included) and journals stream pulls; ``SimEngine.recover()``
+resumes a killed run bit-identically. A ledger violation raises
+``LedgerInvariantError`` with the partial report and journal tail.
 
 Rolling horizon vs the paper's fixed T
 --------------------------------------
@@ -77,9 +78,13 @@ Public API
     TraceConfig, stream, sample_jobs,
     calibrate_prices                      — trace replay
     ResilientPolicy                       — degraded-mode wrapper
+    FaultPlan, FaultIncident,
+    SolverFaultInjector,
+    merge_event_streams                   — chaos harness
     MetricsCollector                      — metrics pipeline
     SimEngine, simulate, SimReport,
     SimKilled, LedgerInvariantError       — the engine
+    OfferService                          — asyncio offer-service boundary
 """
 from .events import Event, EventKind, EventQueue
 from .window import RollingWindow
@@ -92,6 +97,12 @@ from .policy import (
     register_policy,
 )
 from .traces import TraceConfig, calibrate_prices, sample_jobs, stream
+from .faults import (
+    FaultIncident,
+    FaultPlan,
+    SolverFaultInjector,
+    merge_event_streams,
+)
 from .metrics import MetricsCollector
 from .engine import (
     LedgerInvariantError,
@@ -100,6 +111,7 @@ from .engine import (
     SimReport,
     simulate,
 )
+from .service import OfferService
 
 __all__ = [
     "Event", "EventKind", "EventQueue",
@@ -107,7 +119,10 @@ __all__ = [
     "Decision", "SchedulingPolicy", "ResilientPolicy",
     "register_policy", "make_policy", "available_policies",
     "TraceConfig", "stream", "sample_jobs", "calibrate_prices",
+    "FaultPlan", "FaultIncident", "SolverFaultInjector",
+    "merge_event_streams",
     "MetricsCollector",
     "SimEngine", "SimReport", "simulate",
     "SimKilled", "LedgerInvariantError",
+    "OfferService",
 ]

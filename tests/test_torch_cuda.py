@@ -3,8 +3,11 @@ against their plain torch versions bit for bit, and the model's two
 (rmsnorm, flash attention on both routes: bf16 on the tensor cores,
 float32 on the CUDA cores) within their tolerances; the offer path on a
 CUDA ledger launching both of its kernels and deciding as the CPU run
-does; the reduced serving path launching both model kernels and
-answering as the CPU run does. Skipped where there is no card; on one,
+does; the online simulator's clean, chaos, recover, elastic and
+service paths on a CUDA ledger deciding as ``repro.sim`` on numpy or as
+the CPU run does, with the checkpoint's ledger still on the card; the
+reduced serving path launching both model kernels and answering as the
+CPU run does. Skipped where there is no card; on one,
 run ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
@@ -460,3 +463,153 @@ def test_run_oasis_on_the_card_matches_cpu(cuda):
     half = len(trace_of) // 2
     assert trace_of[:half] == trace_of[half:]
     assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)
+
+
+# ------------------------------------- chaos, recovery, elastic, service
+# launch.sim's point (bench_sim's smoke point) with each tier's knobs
+LAUNCH_POINT = dict(machines=6, lookahead=12, preset="google", jobs=60,
+                    rate=3.0, failure_rate=0.1, seed=0)
+
+
+def _ref_chaos_engine(name, machines, lookahead, preset, jobs, rate,
+                      failure_rate, seed):
+    """bench_sim's ``run_point(faults=True)`` engine for ``name`` on the
+    JAX package's numpy backend, and its merged stream."""
+    import repro.core as ref_core
+    import repro.sim as ref_sim
+    from repro_torch.launch import sim as launch_sim
+
+    tcfg = ref_sim.TraceConfig(preset=preset, num_jobs=jobs, seed=seed,
+                               arrival_rate=rate, failure_rate=failure_rate)
+    plan = ref_sim.FaultPlan(**{
+        f: getattr(launch_sim.chaos_plan(seed, machines), f)
+        for f in ("seed", "until", "crash_rate", "straggler_rate",
+                  "downtime", "domains", "domain_correlation",
+                  "solver_fault_rate")})
+    cl = ref_core.make_cluster(machines, lookahead, backend="numpy")
+    if name.startswith("pdors"):
+        policy = ref_sim.ResilientPolicy(
+            inner=name, quanta=launch_sim.QUANTA,
+            price_params=ref_sim.calibrate_prices(tcfg, cl,
+                                                  n=launch_sim.CALIB_JOBS),
+            cfg=ref_core.SubproblemConfig(
+                lp_fault_hook=plan.solver_fault_hook()))
+    else:
+        policy = ref_sim.make_policy(name)
+    engine = ref_sim.SimEngine(ref_sim.RollingWindow(cl), policy, seed=seed,
+                               max_slots=launch_sim.MAX_SLOTS,
+                               patience=tcfg.patience)
+    return engine, ref_sim.merge_event_streams(ref_sim.stream(tcfg),
+                                               plan.events(machines))
+
+
+@pytest.mark.parametrize("name", ["pdors", "fifo", "drf", "dorm"])
+def test_chaos_on_the_card_matches_numpy_backend(cuda, name):
+    """``launch.sim --faults`` at the smoke point on a CUDA ledger: the
+    chaos leg (pdors resilient-wrapped, injected LP faults, crashes and
+    stragglers in the capacity mask) decides as ``repro.sim`` on numpy;
+    pdors launches both offer kernels, every span on cuda."""
+    from repro_torch.launch import sim as launch_sim
+    from repro_torch.obs import trace
+    from test_torch_sim import assert_same_run, run_logged
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    tracer = trace.Tracer()
+    with trace.activate(tracer):
+        got = run_logged(*launch_sim.make_engine(
+            name, device=cuda, faults=True, **LAUNCH_POINT))
+    want = run_logged(*_ref_chaos_engine(name, **LAUNCH_POINT))
+    assert_same_run(got, want)
+    assert got[0].summary["machine_incidents"] > 0
+    if name == "pdors":
+        assert got[0].summary["policy_health"]["solver_faults"] > 0
+        spans = [sp for sp in tracer.spans
+                 if sp.name in ("plan.bundle", "dp.sweep")]
+        assert {sp.attrs["backend"] for sp in spans} == {"cuda"}
+        assert pricing.LAUNCHES > 0 and minplus.LAUNCHES > 0
+
+
+def test_recover_on_the_card_is_bit_identical(cuda):
+    """Kill the chaos run on a CUDA ledger and recover: the checkpoint's
+    ledger is still on the card with caches that agree with a fresh read,
+    and the recovered run (restored at slot 20, the slots up to the kill
+    at 27 run again from the regenerated stream) equals the uninterrupted
+    one."""
+    from repro_torch.launch import sim as launch_sim
+    from repro_torch.sim import SimKilled
+    from test_torch_faults import assert_cluster_caches_fresh
+    base_eng, events = launch_sim.make_engine("pdors", device=cuda,
+                                              faults=True, **LAUNCH_POINT)
+    base = base_eng.run(events)
+    eng, events = launch_sim.make_engine(
+        "pdors", device=cuda, faults=True, checkpoint_every=10, kill_at=27,
+        **LAUNCH_POINT)
+    with pytest.raises(SimKilled):
+        eng.run(events)
+    assert eng._checkpoint.slot == 20
+    assert_cluster_caches_fresh(eng._checkpoint.state[0].cluster, "cuda")
+    rep = eng.recover(launch_sim.make_events(faults=True, **LAUNCH_POINT))
+    assert rep.summary == base.summary
+    assert rep.slots_run == base.slots_run
+    assert eng.metrics.outcomes == base_eng.metrics.outcomes
+    cl = eng.window.cluster
+    assert_cluster_caches_fresh(cl, "cuda")
+    assert torch.equal(cl._used, base_eng.window.cluster._used)
+
+
+def test_elastic_on_the_card_matches_cpu(cuda):
+    """``launch.sim --elastic`` for pdors: both engine modes bit-identical
+    on the card, and the batched run identical to the CPU's."""
+    from repro_torch.launch import sim as launch_sim
+    from test_torch_sim import assert_same_run, run_logged
+    runs = {}
+    for device, mode in ((cuda, "batched"), (cuda, "event"),
+                         ("cpu", "batched")):
+        engine, events = launch_sim.make_engine(
+            "pdors", device=device, elastic=True, engine_mode=mode,
+            **LAUNCH_POINT)
+        runs[str(device), mode] = (run_logged(engine, events), engine)
+    (gb, eb), (ge, _) = runs["cuda", "batched"], runs["cuda", "event"]
+    assert gb[0].summary == ge[0].summary
+    assert gb[0].slots_run == ge[0].slots_run
+    assert gb[0].summary["reshapes"] > 0
+    assert_same_run(gb, runs["cpu", "batched"][0])
+    assert eb.window.cluster._used.device.type == "cuda"
+
+
+def test_service_on_the_card_matches_offer_batch_on_cpu(cuda):
+    """The service row on a CUDA ledger: each batch the service formed,
+    offered through ``PDORS.offer_batch`` on the CPU in the same order,
+    gives the same admissions and schedules."""
+    from repro_torch.launch import sim as launch_sim
+    point = dict(LAUNCH_POINT, jobs=300)
+    sched, jobs = launch_sim.make_service_point(device=cuda, **point)
+    batches = []
+    inner = sched.offer_batch
+
+    def offer_batch(batch):
+        batches.append([j.job_id for j in batch])
+        return inner(batch)
+
+    sched.offer_batch = offer_batch
+    pricing.LAUNCHES = 0
+    minplus.LAUNCHES = 0
+    run = launch_sim.drive_service(sched, jobs, point["machines"])
+    assert pricing.LAUNCHES > 0 and minplus.LAUNCHES > 0
+    assert len(batches) == run["batches"]
+    assert sorted(j for b in batches for j in b) == \
+        sorted(j.job_id for j in jobs)
+    cpu, cpu_jobs = launch_sim.make_service_point(device="cpu", **point)
+    by_id = {j.job_id: j for j in cpu_jobs}
+    want = [r for b in batches for r in cpu.offer_batch(
+        [by_id[i] for i in b])]
+
+    def decided(recs):
+        return {r.job.job_id: (r.admitted, None if r.schedule is None else
+                               {t: (sorted(a.workers.items()),
+                                    sorted(a.ps.items()))
+                                for t, a in r.schedule.slots.items()})
+                for r in recs}
+
+    assert decided(run["records"]) == decided(want)
+    assert run["grants"] == sum(r.admitted for r in want) > 0

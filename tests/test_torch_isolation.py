@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither jax nor any module of the JAX package ``repro``, and no source of
-the port or ``chip_smoke.py`` imports either."""
+the port or ``chip_smoke.py`` imports either; ``repro_torch.sim`` exports
+what ``repro.sim`` does."""
 from __future__ import annotations
 
 import ast
@@ -35,7 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.launch.serve", "repro_torch.convert",
                  "repro_torch.sim", "repro_torch.sim.engine",
                  "repro_torch.core.baselines", "repro_torch.core._reference",
-                 "repro_torch.launch.sim"):
+                 "repro_torch.launch.sim", "repro_torch.sim.faults",
+                 "repro_torch.sim.service"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
@@ -68,3 +70,21 @@ def test_no_source_imports_jax_or_repro():
                  for name in _imported_roots(p)
                  if name in ("jax", "jaxlib", "repro")]
     assert offenders == []
+
+
+def test_sim_alone_loads_no_jax_and_exports_what_repro_sim_does():
+    code = (
+        "import sys, repro_torch.sim as s\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(repr(bad))\n"
+        "print(repr(sorted(s.__all__)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    bad, names = out.stdout.strip().splitlines()[-2:]
+    assert bad == "[]"
+    import repro.sim
+    assert ast.literal_eval(names) == sorted(repro.sim.__all__)

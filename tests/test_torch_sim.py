@@ -7,10 +7,17 @@ each job's outcome row), an identical summary, and total utility within
 rel 1e-9. Also the rolling window's release-clamp invariants on the torch
 ledger, the event queue's ordering, patience departures, the preemption
 requeue, ``pdors`` against the frozen-core ``pdors_ref`` policy, and the
-``launch.sim`` command line."""
+``launch.sim`` command line, whose chaos, elastic and service tiers print
+the rows ``benchmarks/bench_sim.py`` gives on the numpy backend. The
+runners the other ``test_torch_sim*`` and chaos test files share live
+here."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -107,6 +114,101 @@ def run_logged(engine, events):
     log = record_decisions(engine.policy)
     rep = engine.run(events)
     return rep, (log, outcome_rows(engine))
+
+
+# the reshape storm of tests/strategies.py (elastic triggers armed)
+STORM = dict(elastic_frac=0.7, elastic_levels=(0.5, 1.0, 1.5),
+             marginal_floor=0.15, damper_loss=0.6, deadline_frac=0.5,
+             slo_frac=0.5)
+
+
+def trace_cfg(pkg, seed, *, num_jobs=60, rate=3.0, failure_rate=0.1,
+              storm=False, **overrides):
+    """tests/strategies.py's ``make_trace`` (``storm``: its
+    ``reshape_storm``) in package ``pkg`` (``sim`` or ``repro.sim``)."""
+    kw = dict(STORM) if storm else {}
+    kw.update(overrides)
+    return pkg.TraceConfig(num_jobs=num_jobs, seed=seed, arrival_rate=rate,
+                           failure_rate=failure_rate, **kw)
+
+
+def soup_plan(pkg, seed, H):
+    """tests/strategies.py's ``chaos_plan``: crashes and stragglers over
+    correlated fault domains."""
+    return pkg.FaultPlan(
+        seed=seed, until=200, crash_rate=0.02, straggler_rate=0.02,
+        downtime=(2, 6), domains=[(h, h + 1) for h in range(0, H - 1, 2)],
+        domain_correlation=0.5)
+
+
+def cluster_of(pkg, H, W, device="cpu"):
+    """A fresh (H, W) cluster: the port's torch ledger on ``device``, or
+    the JAX package's numpy ledger."""
+    if pkg is sim:
+        return core.make_cluster(H, W, device=device)
+    return ref_core.make_cluster(H, W, backend="numpy")
+
+
+def ledger(engine) -> np.ndarray:
+    cl = engine.window.cluster
+    return np.asarray(cl.backend.to_host(cl._used))
+
+
+def run_sim(pkg, policy_name, mode, seed, *, num_jobs=60, rate=3.0,
+            faults=False, metrics_mode="exact", refail=0.1, H=6, W=12,
+            checkpoint_every=None, kill_at=None, max_slots=2500, trace=None,
+            policy_kwargs=None, events=None, device="cpu"):
+    """tests/strategies.py's ``run_sim`` in package ``pkg``, with the
+    decision log kept: (report, engine, (log, outcome rows))."""
+    tcfg = trace if trace is not None else trace_cfg(
+        pkg, seed, num_jobs=num_jobs, rate=rate)
+    cl = cluster_of(pkg, H, W, device)
+    pkw = dict(policy_kwargs or {})
+    if policy_name == "pdors":
+        pol = pkg.make_policy(
+            "pdors", price_params=pkg.calibrate_prices(tcfg, cl, n=16),
+            quanta=8, **pkw)
+    else:
+        pol = pkg.make_policy(policy_name, **pkw)
+    eng = pkg.SimEngine(pkg.RollingWindow(cl), pol, seed=seed,
+                        max_slots=max_slots, patience=tcfg.patience,
+                        metrics_mode=metrics_mode, engine_mode=mode,
+                        refail_rate=refail,
+                        checkpoint_every=checkpoint_every, kill_at=kill_at)
+    ev = pkg.stream(tcfg) if events is None else events
+    if faults:
+        ev = pkg.merge_event_streams(ev, soup_plan(pkg, seed, H).events(H))
+    log = record_decisions(eng.policy)
+    rep = eng.run(ev)
+    return rep, eng, (log, outcome_rows(eng))
+
+
+def assert_engines_identical(a, b, *, exact_outcomes=True):
+    """Two finished port runs (``run_sim``'s triples) bit-identical:
+    summary, slots, ledger, journal and, in exact mode, every outcome
+    row."""
+    (r1, e1, _), (r2, e2, _) = a, b
+    assert r1.summary == r2.summary
+    assert r1.slots_run == r2.slots_run
+    assert np.array_equal(ledger(e1), ledger(e2))
+    assert e1.journal == e2.journal
+    if exact_outcomes:
+        assert e1.metrics.outcomes == e2.metrics.outcomes
+
+
+def assert_port_matches_repro(policy, seed, mode="batched", **kw):
+    """The port's run equals ``repro.sim``'s on the numpy backend
+    (decision logs, summaries, utility rel 1e-9, ledger); returns the
+    port's triple."""
+    got = run_sim(sim, policy, mode, seed, **kw)
+    ref_kw = dict(kw)
+    if "trace" in kw:
+        ref_kw["trace"] = ref_sim.TraceConfig(
+            **dataclasses.asdict(kw["trace"]))
+    want = run_sim(ref_sim, policy, mode, seed, **ref_kw)
+    assert_same_run((got[0], got[2]), (want[0], want[2]))
+    assert np.allclose(ledger(got[1]), ledger(want[1]), rtol=0, atol=1e-9)
+    return got
 
 
 def assert_same_run(got, want):
@@ -378,3 +480,122 @@ def test_launch_sim_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         launch_sim.make_engine("fifo", machines=2, lookahead=4)
+
+
+# ------------------------------------------- launcher: bench_sim's tiers
+LAUNCH_POINT = dict(machines=6, lookahead=12, preset="google", jobs=60,
+                    rate=3.0, failure_rate=0.1, seed=0)
+# columns that are times or name the backend
+TIMED = {"wall_s", "jobs_per_sec", "backend", "peak_rss_mb",
+         "admission_p50_ms", "admission_p99_ms", "admission_mean_ms"}
+
+
+def _bench_sim():
+    """The JAX package's ``benchmarks/bench_sim.py``, imported as is."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("benchmarks.bench_sim")
+
+
+def _untimed_lines(text: str) -> list:
+    """The printed rows with their rate and latency columns masked."""
+    out = []
+    for line in text.splitlines():
+        if not line.startswith("  "):
+            continue
+        line = re.sub(r" *[\d.]+ (jobs|offers)/s", r" RATE \1/s", line)
+        out.append(re.sub(r"p(50|99)=[\d.]+ms", r"p\1=MS", line))
+    return out
+
+
+def assert_rows_match(got: list, want: list):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) - {"peak_rss_mb"} == set(w) - {"peak_rss_mb"}
+        assert g["backend"] == "torch:cpu"
+        keep = set(g) - TIMED - {"total_utility"}
+        assert {k: g[k] for k in keep} == {k: w[k] for k in keep}
+        if "total_utility" in g:
+            assert g["total_utility"] == pytest.approx(w["total_utility"],
+                                                       rel=1e-9)
+
+
+def test_launch_sim_faults_rows_match_bench_sim(capsys):
+    """``--faults``: the chaos leg's rows (pdors resilient-wrapped with
+    the plan's solver-fault hook) equal bench_sim's ``run_point(faults=
+    True)`` on the numpy backend, and so do the printed lines."""
+    policies = ["pdors", "fifo", "drf", "dorm"]
+    p = LAUNCH_POINT
+    want = _bench_sim().run_point(
+        p["machines"], p["lookahead"], p["preset"], p["jobs"], p["rate"],
+        p["failure_rate"], policies, p["seed"], launch_sim.MAX_SLOTS,
+        faults=True)
+    want_out = capsys.readouterr().out
+    got = launch_sim.chaos_rows(policies, device="cpu", **p)
+    assert_rows_match(got, want)
+    assert _untimed_lines(capsys.readouterr().out) == \
+        _untimed_lines(want_out)
+    health = got[0]["policy_health"]
+    assert health["solver_faults"] > 0 and health["fallbacks"] > 0
+    assert all(r["machine_incidents"] > 0 for r in got)
+
+
+def test_launch_sim_elastic_rows_match_bench_sim(capsys):
+    """``--elastic``: the reshape storm's rows, with both engine modes'
+    parity, equal bench_sim's ``run_elastic_point``."""
+    policies = ["pdors", "fifo"]
+    p = LAUNCH_POINT
+    want = _bench_sim().run_elastic_point(
+        p["machines"], p["lookahead"], p["preset"], p["jobs"], p["rate"],
+        p["failure_rate"], policies, p["seed"], launch_sim.MAX_SLOTS)
+    want_out = capsys.readouterr().out
+    got = launch_sim.elastic_rows(policies, device="cpu", **p)
+    assert_rows_match(got, want)
+    assert _untimed_lines(capsys.readouterr().out) == \
+        _untimed_lines(want_out)
+    assert all(r["engine_parity"] and r["reshapes"] > 0 for r in got)
+
+
+@pytest.mark.parametrize("jobs", [60, 150])
+def test_launch_sim_service_row_matches_bench_sim(capsys, jobs):
+    """``--service``: the service row (admissions, grants, batches) equals
+    bench_sim's ``run_service_point``."""
+    p = dict(LAUNCH_POINT, jobs=jobs)
+    want = _bench_sim().run_service_point(
+        p["machines"], p["lookahead"], p["preset"], p["jobs"], p["rate"],
+        p["seed"])
+    want_out = capsys.readouterr().out
+    got = launch_sim.service_row(device="cpu", **p)
+    assert_rows_match([got], [want])
+    assert _untimed_lines(capsys.readouterr().out) == \
+        _untimed_lines(want_out)
+    assert got["batches"] == -(-jobs // launch_sim.SERVICE_CHUNK)
+    assert got["grants_polled"] == got["jobs_admitted"] > 0
+
+
+def test_launch_sim_tiers_on_the_command_line(capsys):
+    small = ["--device", "cpu", "--machines", "4", "--lookahead", "8",
+             "--jobs", "15", "--rate", "4.0", "--seed", "1",
+             "--policies", "fifo"]
+    assert launch_sim.main(small + ["--faults"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].endswith(" faults")
+    assert lines[1].split(":")[0].strip() == "fifo" and "avail=" in lines[1]
+    assert launch_sim.main(small + ["--elastic"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "fifo [elastic]" in lines[1] and "parity=OK" in lines[1]
+    assert launch_sim.main(small + ["--service"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "pdors [service]" in lines[1] and "batches=1" in lines[1]
+    with pytest.raises(SystemExit):
+        launch_sim.main(small + ["--faults", "--service"])
+
+
+def test_launch_sim_service_default_device_is_the_card(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        launch_sim.make_service_point(machines=2, lookahead=4)
+    with pytest.raises(RuntimeError):
+        launch_sim.make_engine("pdors", machines=2, lookahead=4, faults=True)

@@ -1,9 +1,11 @@
 """The port's two engine modes on the torch ledger: ``engine_mode=
 "batched"`` must be bit-identical to the per-event oracle (``"event"``)
 — same summary dict, slot count, ledger tensor, journal and per-job
-outcome rows — on clean streams, for pdors and for fifo/drf/dorm, as
-``tests/test_sim_batch.py`` holds the JAX package's engine; and the
-batched port must decide as the JAX package's batched engine does."""
+outcome rows — on clean streams and on chaos soups (machine incidents,
+job failures and re-fail cascades, same-slot collisions, checkpoints),
+for pdors and for fifo/drf/dorm, as ``tests/test_sim_batch.py`` holds
+the JAX package's engine; and the batched port must decide as the JAX
+package's batched engine does, faults included."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,11 +13,15 @@ import pytest
 from hypothesis import given, settings
 
 from strategies import SLOT_POLICIES, policies, seeds
+from repro_torch import sim
 from test_torch_sim import (
+    assert_engines_identical,
+    assert_port_matches_repro,
     assert_same_run,
     make_port_engine,
     make_ref_engine,
     run_logged,
+    run_sim,
 )
 
 # the suite's standard short google stream (strategies.make_trace), with
@@ -101,3 +107,58 @@ def test_streaming_outcomes_bounded_by_in_flight():
     for k in ("jobs_offered", "jobs_completed", "jobs_rejected",
               "jobs_departed", "jobs_evicted", "preemptions"):
         assert s[k] == runs["exact"][0][k], k
+
+
+# ------------------------------------------------------- chaos soups
+def assert_chaos_modes_identical(policy, seed, **kw):
+    """tests/strategies.py's ``assert_equivalent`` on the torch ledger:
+    the batched engine equals the per-event oracle bit for bit."""
+    event = run_sim(sim, policy, "event", seed, **kw)
+    batched = run_sim(sim, policy, "batched", seed, **kw)
+    assert_engines_identical(
+        event, batched,
+        exact_outcomes=kw.get("metrics_mode", "exact") == "exact")
+    return batched
+
+
+@settings(max_examples=3, deadline=None)
+@given(seeds(), policies(SLOT_POLICIES))
+def test_batched_equiv_chaos_event_soup(seed, policy):
+    """Chaos soups (machine incidents, failures, re-fail cascades) force
+    same-slot collisions across every event kind."""
+    rep = assert_chaos_modes_identical(policy, seed, faults=True)[0]
+    assert rep.summary["machine_incidents"] > 0
+
+
+@settings(max_examples=2, deadline=None)
+@given(seeds())
+def test_batched_equiv_same_slot_collisions(seed):
+    """A high arrival rate: most slots carry multi-event groups."""
+    assert_chaos_modes_identical("fifo", seed, rate=8.0, num_jobs=80)
+
+
+@pytest.mark.parametrize("metrics_mode", ["exact", "streaming"])
+def test_batched_equiv_pdors_with_faults(metrics_mode):
+    rep = assert_chaos_modes_identical("pdors", 3, num_jobs=40, faults=True,
+                                       metrics_mode=metrics_mode)[0]
+    assert rep.summary["machine_incidents"] > 0
+
+
+@pytest.mark.parametrize("policy", ["fifo", "dorm"])
+def test_batched_equiv_streaming_metrics_with_faults(policy):
+    assert_chaos_modes_identical(policy, 11, metrics_mode="streaming",
+                                 faults=True)
+
+
+def test_batched_equiv_with_checkpoints():
+    """Checkpoints keep the whole journal and snapshot the batched mode's
+    state; the recovery bookkeeping must not perturb parity."""
+    assert_chaos_modes_identical("fifo", 7, faults=True, checkpoint_every=16)
+
+
+@pytest.mark.parametrize("policy", ["pdors", "fifo", "drf", "dorm"])
+def test_batched_chaos_port_matches_batched_numpy_backend(policy):
+    """The chaos soup through the batched engine decides as the JAX
+    package's batched engine on its numpy backend."""
+    rep = assert_port_matches_repro(policy, 3, num_jobs=40, faults=True)[0]
+    assert rep.summary["machine_incidents"] > 0
