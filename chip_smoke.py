@@ -52,13 +52,24 @@ paths:
     the tensor-core kernel, and the profiled run's rmsnorm device time
     split into its prefill-shape and decode-shape launches; then a
     2-layer float32 cut of the full-width model served on the card and
-    on the CPU from the same weights, requiring identical greedy tokens.
+    on the CPU from the same weights, requiring identical greedy tokens;
+  * the MoE serving path: Phi-3.5-MoE at full width (d_model 4096, 32 x
+    128 query heads, 8 kv heads, 16 experts top-2 of d_ff 6400, vocab
+    32064, capacity factor 1.25, groups of 512) cut to 8 of its 32
+    layers, served as Gemma-7B is, with exact launch counts and the
+    dropped (token, k) slots of a prefill and a decode forward (routed
+    again from each MoE layer's input by a forward pre-hook); then its
+    2-layer float32 cut on the card and on the CPU, requiring identical
+    greedy tokens and identical routing (top-k indices, keep masks) at
+    every token whose routing gap exceeds 1e-6.
 
 It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
-(4, 3072); flash attention on both routes; the offer kernels' launches
+(4, 3072), and under ``phi35_moe`` at (4096, 4096) and (4, 4096); flash
+attention on both routes and, under ``phi35_moe``, at Phi-3.5-MoE's
+prefill (4, 1024, 32 heads, 8 kv heads, 128); the offer kernels' launches
 on the sim path beside the static path's, and on each of the chaos,
 recover, elastic and service paths), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
@@ -89,6 +100,17 @@ SERVE_POINT = dict(arch="gemma-7b", requests=8, prompt_len=1024,
 # the cuda-vs-cpu parity run: the full-width model cut to 2 layers, f32
 PARITY_POINT = dict(arch="gemma-7b", layers=2, requests=2, prompt_len=128,
                     max_new=8, seed=1)
+
+# the MoE serving run: Phi-3.5-MoE at full width, 8 of its 32 layers (the
+# whole model, 41.9 B params, is 83.7 GB even in bf16; at 8 layers the
+# float32 master and the engine's bf16 copy peak near 64 GB at set-up)
+MOE_SERVE_POINT = dict(arch="phi3.5-moe-42b-a6.6b", layers=8, requests=8,
+                       prompt_len=1024, max_new=32, max_batch=4, seed=0)
+MOE_PARITY_POINT = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, requests=2,
+                        prompt_len=128, max_new=8, seed=1)
+# cuda and cpu must route a token alike when each gap between its k + 1
+# largest router probabilities exceeds this
+ROUTING_GAP = 1e-6
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -789,8 +811,8 @@ def check_model_kernels(rmsnorm, flash) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
     err = {"rmsnorm": 0.0, "flash_attention": 0.0}
-    for N, d in [(4096, 3072), (4, 3072), (1024 * 64, 128), (96, 512),
-                 (16, 12288), (5, 50), (300, 1)]:
+    for N, d in [(4096, 3072), (4, 3072), (4096, 4096), (4, 4096),
+                 (1024 * 64, 128), (96, 512), (16, 12288), (5, 50), (300, 1)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -802,6 +824,7 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                 f"rmsnorm ({N}, {d}) {dt}", **tol))
     cases = [  # B, S_q, S_k, H, KV, D, causal, window, dtypes
         (4, 1024, 1024, 16, 16, 256, True, 0, ("bf16", "f32")),
+        (4, 1024, 1024, 32, 8, 128, True, 0, ("bf16",)),    # Phi-3.5-MoE
         (2, 512, 512, 64, 8, 128, True, 0, ("bf16", "f32")),
         (1, 200, 200, 4, 2, 256, True, 0, ("bf16", "f32")),
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
@@ -854,18 +877,72 @@ def _requests(Request, vocab: int, n: int, length: int, max_new: int,
                     max_new_tokens=max_new) for i in range(n)]
 
 
-def serve_full_width(rmsnorm, flash) -> dict:
-    """Gemma-7B, all 28 layers, on the card through ServeEngine.serve;
+def point_config(p: dict):
+    """The full-width config of ``p["arch"]``, cut to ``p["layers"]``
+    layers where the point says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(p["arch"])
+    if "layers" in p:
+        cfg = dataclasses.replace(cfg, num_layers=p["layers"])
+    return cfg
+
+
+def record_routing(params, cfg, record: list) -> list:
+    """A forward pre-hook on each MoE layer of ``params`` that re-runs
+    ``moe.route`` on the layer's input and appends (top-k indices, keep
+    mask, router probabilities) to ``record`` as they lie on the device
+    (the hook reads nothing back). Returns the hooks' handles."""
+    from repro_torch.models import moe
+
+    def hook(layer, args):
+        r = moe.route(cfg, layer.router, moe.group_tokens(cfg.moe, args[0]))
+        record.append((r.top_idx, r.keep, r.probs))
+
+    return [b.moe.register_forward_pre_hook(hook) for b in params.layers]
+
+
+def routing_gap(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Per token, the least gap between consecutive router probabilities
+    among its k + 1 largest."""
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+
+
+def drop_counts(record: list, cfg) -> dict:
+    """The dropped (token, k) slots of each forward in ``record``, by
+    token count: per forward summed over the layers, and per layer of the
+    first such forward; with the group size and capacity."""
+    from repro_torch.models import moe
+    out: dict = {}
+    L = cfg.num_layers
+    for i in range(0, len(record), L):
+        layers = record[i:i + L]
+        G, g, K = layers[0][0].shape
+        per_layer = [int(idx.numel() - keep.sum())
+                     for idx, keep, _ in layers]
+        row = out.setdefault(G * g, {"group": g, "capacity":
+                                     moe.capacity(cfg.moe, g),
+                                     "slots": G * g * K * L, "forwards": 0,
+                                     "dropped": 0, "per_layer": per_layer})
+        row["forwards"] += 1
+        row["dropped"] += sum(per_layer)
+    for row in out.values():
+        row["dropped_per_forward"] = row["dropped"] / row["forwards"]
+    return out
+
+
+def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
+    """The point's model at full width (Gemma-7B at all 28 layers;
+    Phi-3.5-MoE cut in depth) on the card through ServeEngine.serve;
     raises unless every completion, the prefill logits and the launch
-    counts are right. Returns the run's numbers."""
+    counts are right. Returns the run's numbers; for MoE also the
+    dropped slots of the warm-up's forwards."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
-    p = SERVE_POINT
-    cfg = get_config(p["arch"])
+    cfg = point_config(p)
     cache_len = p["prompt_len"] + p["max_new"] + 8
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -880,7 +957,10 @@ def serve_full_width(rmsnorm, flash) -> dict:
     reqs = _requests(Request, cfg.vocab_size, p["requests"],
                      p["prompt_len"], p["max_new"], p["seed"])
 
-    # warm-up (first use of each cuBLAS shape), and the prefill logits
+    # warm-up (first use of each cuBLAS shape), the prefill logits, and
+    # for MoE the routing of the warm-up's forwards
+    routing: list = []
+    hooks = record_routing(engine.params, cfg, routing) if cfg.moe else []
     first = torch.from_numpy(np.stack([r.prompt for r in reqs[:4]])).long()
     logits, _ = engine.model.prefill(engine.params,
                                      {"tokens": first.cuda()}, cache_len)
@@ -891,6 +971,10 @@ def serve_full_width(rmsnorm, flash) -> dict:
     del logits
     engine.run_batch([dataclasses.replace(r, max_new_tokens=2)
                       for r in reqs[:4]])
+    for h in hooks:
+        h.remove()
+    drops = drop_counts(routing, cfg) if cfg.moe else None
+    del routing
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -943,7 +1027,8 @@ def serve_full_width(rmsnorm, flash) -> dict:
 
     per_batch = sorted({(c.prefill_ms, c.decode_ms) for c in done})
     n_tok = sum(len(c.tokens) for c in done)
-    out = dict(init_s=init_s, wall=wall, tokens=n_tok,
+    out = dict(layers=cfg.num_layers, drops=drops, init_s=init_s,
+               wall=wall, tokens=n_tok,
                tok_per_s=n_tok / wall, per_batch=per_batch,
                setup_peak_gb=setup_peak / 1e9, serve_peak_gb=serve_peak / 1e9,
                launches=launches, flash_calls=flash_calls,
@@ -982,21 +1067,24 @@ def rmsnorm_by_shape(prof, batches: int, layers: int):
             for k, (n, t) in out.items()}
 
 
-def parity_cuda_cpu() -> dict:
-    """The full-width model cut to 2 layers in float32, served on the
-    card and on the CPU from the same weights: identical greedy tokens,
-    last-position prefill logits within rtol=atol 1e-3."""
-    from repro_torch.configs import get_config
+def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
+    """The full-width model cut to ``p["layers"]`` layers in float32,
+    served on the card and on the CPU from the same weights: identical
+    greedy tokens, last-position prefill logits within rtol=atol 1e-3;
+    for MoE, identical top-k indices and keep masks in every layer and
+    forward at every token whose routing gap exceeds ``ROUTING_GAP``."""
     from repro_torch.models import build_model, lm
     from repro_torch.serve import Request, ServeEngine
 
-    p = PARITY_POINT
-    cfg = dataclasses.replace(get_config(p["arch"]), num_layers=p["layers"],
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(point_config(p), compute_dtype="float32")
     model = build_model(cfg)
     gpu = model.init(p["seed"], "cuda")
     cpu = lm.LM(cfg, "cpu")
     cpu.load_state_dict(gpu.state_dict())
+    routing = {"cuda": [], "cpu": []}
+    if cfg.moe:
+        for name, params in (("cuda", gpu), ("cpu", cpu)):
+            record_routing(params, cfg, routing[name])
     cache_len = p["prompt_len"] + p["max_new"] + 8
     reqs = _requests(Request, cfg.vocab_size, p["requests"], p["prompt_len"],
                      p["max_new"], p["seed"])
@@ -1016,11 +1104,36 @@ def parity_cuda_cpu() -> dict:
         if not np.array_equal(g.tokens, c.tokens):
             raise AssertionError(f"request {g.request_id}: cuda tokens "
                                  f"{g.tokens} != cpu {c.tokens}")
-    del gpu
+    res = dict(logits_err=err, tokens=[c.tokens.tolist()
+                                       for c in out["cuda"]],
+               cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
+    if cfg.moe:
+        res["routing"] = same_routing(routing["cuda"], routing["cpu"], cfg)
+    del gpu, routing
     torch.cuda.empty_cache()
-    return dict(logits_err=err, tokens=[c.tokens.tolist()
-                                        for c in out["cuda"]],
-                cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
+    return res
+
+
+def same_routing(gpu: list, cpu: list, cfg) -> dict:
+    """Raise unless each recorded layer-forward routed alike on both
+    devices at every token whose gap (the least of both devices') exceeds
+    ``ROUTING_GAP``; returns the smallest gap seen and the counts."""
+    if len(gpu) != len(cpu) or not gpu:
+        raise AssertionError(f"routing records {len(gpu)} vs {len(cpu)}")
+    K = cfg.moe.top_k
+    least, tokens, close = float("inf"), 0, 0
+    for i, ((gi, gk, gp), (ci, ck, cp)) in enumerate(zip(gpu, cpu)):
+        gap = torch.minimum(routing_gap(gp.cpu(), K), routing_gap(cp, K))
+        stable = gap > ROUTING_GAP
+        if not (torch.equal(gi.cpu()[stable], ci[stable]) and
+                torch.equal(gk.cpu()[stable], ck[stable])):
+            raise AssertionError(f"routing record {i}: cuda and cpu route "
+                                 f"a token apart above the gap")
+        least = min(least, float(gap.min()))
+        tokens += gap.numel()
+        close += int((~stable).sum())
+    return dict(records=len(gpu), tokens=tokens, least_gap=least,
+                at_or_below_gap=close)
 
 
 # ----------------------------------------------- serving path: times
@@ -1077,6 +1190,32 @@ def flash_numbers(flash, q, k, v) -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, **gqa), reps=20, warmup=3),
     }
+
+
+def print_serving(label: str, p: dict, sv: dict) -> None:
+    print(f"{label} ({p['arch']}, {sv['layers']} layers, {p['requests']} "
+          f"requests x {p['prompt_len']} prompt + {p['max_new']} new, "
+          f"max_batch {p['max_batch']}, greedy): wall {sv['wall']:.4f} s, "
+          f"{sv['tokens']} tokens, {sv['tok_per_s']:.2f} tok/s; per batch "
+          f"(prefill ms, decode ms) "
+          f"{[(round(a, 3), round(b, 3)) for a, b in sv['per_batch']]}; "
+          f"launches {sv['launches']}; init {sv['init_s']:.2f} s; peak "
+          f"memory {sv['setup_peak_gb']:.2f} GB at set-up (f32 params + "
+          f"bf16 copy), {sv['serve_peak_gb']:.2f} GB while serving")
+    print(f"{label} device busy {sv['busy']:.4f} s of a profiled "
+          f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
+          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s "
+          f"(calls {sv['flash_calls']}); "
+          f"top kernels by device time: " + "; ".join(
+              f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
+    split = sv["rmsnorm_split"]
+    rows = {"prefill_shape": p["max_batch"] * p["prompt_len"],
+            "decode_shape": p["max_batch"]}
+    print(f"{label} rmsnorm device time by launch shape: " + (
+        "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
+                  f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
+                  for k, v in split.items())
+        if split else "not measured (the profiler lost launches)"))
 
 
 def main() -> int:
@@ -1163,31 +1302,7 @@ def main() -> int:
 
     # 6. serving path: Gemma-7B at full width and depth on the card
     sv = serve_full_width(rmsnorm, flash)
-    p = SERVE_POINT
-    print(f"serving ({p['arch']}, 28 layers, {p['requests']} requests x "
-          f"{p['prompt_len']} prompt + {p['max_new']} new, max_batch "
-          f"{p['max_batch']}, greedy): wall {sv['wall']:.4f} s, "
-          f"{sv['tokens']} tokens, {sv['tok_per_s']:.2f} tok/s; per batch "
-          f"(prefill ms, decode ms) "
-          f"{[(round(a, 3), round(b, 3)) for a, b in sv['per_batch']]}; "
-          f"launches {sv['launches']}; init {sv['init_s']:.2f} s; peak "
-          f"memory {sv['setup_peak_gb']:.2f} GB at set-up (f32 params + "
-          f"bf16 copy), {sv['serve_peak_gb']:.2f} GB while serving")
-    print(f"serving device busy {sv['busy']:.4f} s of a profiled "
-          f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
-          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s "
-          f"(calls {sv['flash_calls']}); "
-          f"top kernels by device time: " + "; ".join(
-              f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
-
-    split = sv["rmsnorm_split"]
-    rows = {"prefill_shape": p["max_batch"] * p["prompt_len"],
-            "decode_shape": p["max_batch"]}
-    print("serving rmsnorm device time by launch shape: " + (
-        "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
-                  f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
-                  for k, v in split.items())
-        if split else "not measured (the profiler lost launches)"))
+    print_serving("serving", SERVE_POINT, sv)
 
     # 7. serving path: 2-layer float32 cut, cuda against cpu
     pa = parity_cuda_cpu()
@@ -1195,6 +1310,26 @@ def main() -> int:
           f"tokens {pa['tokens'][0]}..., prefill logits max abs err "
           f"{pa['logits_err']:.3e}; serve cuda {pa['cuda_s']:.4f} s, cpu "
           f"{pa['cpu_s']:.4f} s")
+
+    # 7b. MoE serving: Phi-3.5-MoE at full width, 8 layers, then its
+    # 2-layer float32 cut on cuda and cpu with the routing compared
+    moe_sv = serve_full_width(rmsnorm, flash, MOE_SERVE_POINT)
+    print_serving("moe serving", MOE_SERVE_POINT, moe_sv)
+    print("moe serving dropped (token, k) slots a forward (warm-up "
+          "forwards, routed again from each layer's input): " + "; ".join(
+              f"{T} tokens (groups of {r['group']}, C = {r['capacity']}): "
+              f"{r['dropped_per_forward']} of {r['slots']} over "
+              f"{moe_sv['layers']} layers, by layer {r['per_layer']}"
+              for T, r in sorted(moe_sv["drops"].items())))
+    mpa = parity_cuda_cpu(MOE_PARITY_POINT)
+    ro = mpa["routing"]
+    print(f"moe parity ({MOE_PARITY_POINT['layers']}-layer full-width f32, "
+          f"cuda vs cpu): identical greedy tokens {mpa['tokens'][0]}..., "
+          f"prefill logits max abs err {mpa['logits_err']:.3e}; routing "
+          f"identical over {ro['records']} layer-forwards, {ro['tokens']} "
+          f"tokens, {ro['at_or_below_gap']} at or below the {ROUTING_GAP} "
+          f"gap, least gap {ro['least_gap']:.3e}; serve cuda "
+          f"{mpa['cuda_s']:.4f} s, cpu {mpa['cpu_s']:.4f} s")
 
     # 8. times at the main paths' shapes
     gen = torch.Generator().manual_seed(1)
@@ -1210,7 +1345,11 @@ def main() -> int:
     x = (torch.randn((4096, 3072), generator=gen) * 3).to(torch.bfloat16)
     rnum = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
     rdec = rmsnorm_numbers(rmsnorm, x[:4].cuda(), torch.ones(3072).cuda())
-    for f in (rnum, rdec):
+    x = (torch.randn((4096, 4096), generator=gen) * 3).to(torch.bfloat16)
+    rmoe = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(4096).cuda())
+    rmoe_dec = rmsnorm_numbers(rmsnorm, x[:4].cuda(),
+                               torch.ones(4096).cuda())
+    for f in (rnum, rdec, rmoe, rmoe_dec):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -1224,9 +1363,16 @@ def main() -> int:
                for shape in ((2, 1024, 64, 128), (2, 1024, 8, 128),
                              (2, 1024, 8, 128)))
     fnum["qwen3_32b"] = flash_numbers(flash, q, k, v)
+    del q, k, v
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+               for shape in ((4, 1024, 32, 128), (4, 1024, 8, 128),
+                             (4, 1024, 8, 128)))
+    fmoe = flash_numbers(flash, q, k, v)       # Phi-3.5-MoE prefill
+    del q, k, v
     for label, f in (("bf16, tensor cores", fnum),
                      ("float32, CUDA cores", fnum["float32"]),
-                     ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"])):
+                     ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"]),
+                     ("bf16 at Phi-3.5-MoE's prefill", fmoe)):
         print(f"flash {f['shape']} kv_heads {f['kv_heads']} causal "
               f"({label}): device {f['device_ms']} ms, events {f['ms']} ms,"
               f" {f['tflops']} TFLOP/s, {f['bound_share']} of the "
@@ -1359,13 +1505,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/rmsnorm.py:35",
          "launches": sv["launches"]["rmsnorm"],
          "max_abs_err": merr["rmsnorm"], **rnum, "decode_shape": rdec,
-         "serving_split": sv["rmsnorm_split"]},
+         "serving_split": sv["rmsnorm_split"],
+         "phi35_moe": {"launches": moe_sv["launches"]["rmsnorm"],
+                       "prefill_shape": rmoe, "decode_shape": rmoe_dec,
+                       "serving_split": moe_sv["rmsnorm_split"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",
          "launches": sv["launches"]["flash_attention"],
-         "max_abs_err": merr["flash_attention"], **fnum},
+         "max_abs_err": merr["flash_attention"], **fnum,
+         "phi35_moe": {"launches": moe_sv["launches"]["flash_attention"],
+                       **fmoe}},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -83,11 +83,13 @@ def lm_params_from_jax(cfg, tree: Mapping, device=None):
     (nested dicts of numpy arrays): ``embed/table``, ``unembed/table``,
     ``final_norm/scale`` and ``layers/...`` stacked on a leading L axis
     (``attn_norm/scale``, ``attn/{wq,wk,wv,wo,q_norm,k_norm}``,
-    ``ffn_norm/scale``, ``mlp/{w_gate,w_up,w_down}``). The port's modules
-    keep the tree's names and per-layer layouts, so layer i of every
-    stacked array becomes ``layers.{i}.<name>``. Every array is copied
-    into the param of that name (the config's param dtype); missing or
-    extra names raise."""
+    ``ffn_norm/scale``, ``mlp/{w_gate,w_up,w_down}``, or for MoE
+    ``moe/{router,w_gate,w_up,w_down}`` with the expert axis second and
+    ``moe/shared/{w_gate,w_up,w_down}``). The port's modules keep the
+    tree's names and per-layer layouts, so layer i of every stacked array
+    becomes ``layers.{i}.<name>``. Every array is copied into the param
+    of that name (the config's param dtype; the router float32); missing
+    or extra names raise."""
     device = resolve_device(device)
     flat = _flatten(tree)
     state: Dict[str, torch.Tensor] = {}

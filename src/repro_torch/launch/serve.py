@@ -6,8 +6,10 @@ CUDA card by default.
 
 The flags and defaults of the JAX package's launcher (the reduced config,
 random weights from seed 0), plus ``--device`` (``cpu`` runs the kernels'
-plain versions). Loading a checkpoint (``--ckpt-dir``) comes with the
-training slice. ``chip_smoke.py`` serves the full-width config.
+plain versions). ``--arch`` takes the dense and MoE families
+(``phi3.5-moe-42b-a6.6b``); the others raise "later slice". Loading a
+checkpoint (``--ckpt-dir``) comes with the training slice.
+``chip_smoke.py`` serves the full-width config.
 """
 import argparse
 import sys

@@ -20,12 +20,12 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import lm
-from .blocks import require_dense
+from .blocks import require_ported
 
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
 
     # ---------------- params ----------------

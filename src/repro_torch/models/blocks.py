@@ -1,18 +1,21 @@
-"""Transformer block and layer stack for the dense decoder.
+"""Transformer block and layer stack for the GQA decoder.
 
-The port of the JAX package's ``models/blocks.py`` for the dense family
-(and dense GQA configs generally): attn -> mlp, pre-norm, residual. The
-reference stacks every layer's params on a leading L axis and scans one
-block over them; here the stack is an ``nn.ModuleList`` walked by a
-Python loop, and each layer's cache is its own dict (a list of them for
-the stack). Per-layer windows are a list of ints (or None).
+The port of the JAX package's ``models/blocks.py`` for the dense and MoE
+families: attn -> mlp, or attn -> moe (+ shared experts); pre-norm,
+residual. The reference stacks every layer's params on a leading L axis
+and scans one block over them; here the stack is an ``nn.ModuleList``
+walked by a Python loop, and each layer's cache is its own dict (a list
+of them for the stack). Per-layer windows are a list of ints (or None).
+Each block returns its router aux loss and the stack sums them, as the
+reference's scan does.
 
-MoE, SSM (Mamba-2), hybrid (Hymba) and cross-attention (enc-dec) blocks
-are ported in later slices and raise ``NotImplementedError`` here.
+SSM (Mamba-2), hybrid (Hymba) and cross-attention (enc-dec) blocks and
+the modality frontends are ported in later slices and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -20,8 +23,12 @@ from torch import nn
 from ..configs.base import ArchConfig
 from .attention import Cache, init_attention_cache, make_attention
 from .layers import MLP, RMSNorm
+from .moe import MoE
 
 BIG_WINDOW = 2**30  # "global" sentinel for per-layer windows
+#: a router aux loss: a float32 0-d tensor, or 0.0 where no layer has
+#: experts (so the dense stack launches nothing to sum it)
+Aux = Union[float, torch.Tensor]
 
 
 def has_attention(cfg: ArchConfig) -> bool:
@@ -32,11 +39,10 @@ def has_mlp(cfg: ArchConfig) -> bool:
     return cfg.d_ff > 0 and cfg.moe is None
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    """Raise for the block families this slice of the port lacks."""
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise for the block families the port does not have yet (MLA
+    attention raises in ``attention.make_attention``)."""
     missing = []
-    if cfg.moe is not None:
-        missing.append("MoE")
     if cfg.ssm is not None or cfg.hybrid or not has_attention(cfg):
         missing.append("SSM/hybrid")
     if cfg.encoder_layers:
@@ -53,24 +59,33 @@ def require_dense(cfg: ArchConfig) -> None:
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         dt = cfg.dtype("param")
         self.attn_norm = RMSNorm(cfg.d_model, dt, device)
         self.attn = make_attention(cfg, device)
-        if has_mlp(cfg):
+        if cfg.moe is not None:
+            self.ffn_norm = RMSNorm(cfg.d_model, dt, device)
+            self.moe = MoE(cfg, device)
+        elif has_mlp(cfg):
             self.ffn_norm = RMSNorm(cfg.d_model, dt, device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 window: Optional[int], cache: Optional[Cache] = None,
                 prefill: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                ) -> Tuple[torch.Tensor, Aux, Optional[Cache]]:
+        """Returns (x, the layer's router aux loss, cache); the aux loss
+        is 0.0 in a block without experts."""
         a_out, cache = self.attn(self.attn_norm(x), positions, window=window,
                                  cache=cache, prefill=prefill)
         x = x + a_out
-        if hasattr(self, "mlp"):
+        aux: Aux = 0.0
+        if hasattr(self, "moe"):
+            m_out, aux = self.moe(self.ffn_norm(x))
+            x = x + m_out
+        elif hasattr(self, "mlp"):
             x = x + self.mlp(self.ffn_norm(x))
-        return x, cache
+        return x, aux, cache
 
 
 # ---------------------------------------------------------------- stack
@@ -105,10 +120,13 @@ def apply_stack(
     windows: Optional[List[int]],
     cache: Optional[List[Cache]] = None,
     prefill: bool = False,
-) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
-    """Run the blocks in order over x. Returns (x, cache)."""
+) -> Tuple[torch.Tensor, Aux, Optional[List[Cache]]]:
+    """Run the blocks in order over x. Returns (x, the layers' summed
+    router aux loss, cache)."""
+    aux: Aux = 0.0
     for i, block in enumerate(layers):
-        x, _ = block(x, positions, None if windows is None else windows[i],
-                     cache=None if cache is None else cache[i],
-                     prefill=prefill)
-    return x, cache
+        x, a, _ = block(x, positions, None if windows is None else windows[i],
+                        cache=None if cache is None else cache[i],
+                        prefill=prefill)
+        aux = aux + a
+    return x, aux, cache

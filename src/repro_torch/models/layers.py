@@ -114,14 +114,19 @@ class Embedding(nn.Module):
 def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` in place with the reference's
     distributions: norm scales 1, embedding tables truncated normal
-    x 0.02, every other weight truncated normal x 1/sqrt(shape[0]) (the
-    dense path's ``dense_init(..., in_axis=0)``)."""
+    x 0.02, every other weight truncated normal x 1/sqrt(fan-in). The
+    fan-in is the weight's first axis (the reference's ``dense_init(...,
+    in_axis=0)``) unless its module's ``fan_in_axis`` names another: the
+    experts' ``in_axis=1``."""
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("scale"):
-                p.fill_(1.0)
-            elif name.endswith("table"):
-                trunc_normal_(p, EMBED_STD, gen)
-            else:
-                trunc_normal_(p, 1.0 / math.sqrt(p.shape[0]), gen)
+        for mod in module.modules():
+            axes = getattr(mod, "fan_in_axis", {})
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "scale":
+                    p.fill_(1.0)
+                elif name == "table":
+                    trunc_normal_(p, EMBED_STD, gen)
+                else:
+                    fan_in = p.shape[axes.get(name, 0)]
+                    trunc_normal_(p, 1.0 / math.sqrt(fan_in), gen)
     return module

@@ -1,6 +1,7 @@
 """Decoder-only language model, serving half: init, cache, prefill, decode.
 
-The port of the JAX package's ``models/lm.py`` for the dense family:
+The port of the JAX package's ``models/lm.py`` for the dense and MoE
+families:
 
     init(cfg, seed, device)                    -> params (an ``LM`` module)
     init_cache(cfg, batch, cache_len, device)  -> per-layer caches
@@ -26,18 +27,19 @@ from ..backend.torch_backend import resolve_device
 from ..configs.base import ArchConfig
 from .attention import Cache
 from .blocks import Block, apply_stack, init_stack_cache, layer_windows, \
-    require_dense
+    require_ported
 from .layers import Embedding, RMSNorm, init_params_
 
 
 class LM(nn.Module):
     """Params, named as the reference's tree: ``embed.table``,
-    ``layers.{i}.{attn_norm,attn,ffn_norm,mlp}.*``, ``final_norm.scale``
-    and, untied, ``unembed.table``."""
+    ``layers.{i}.{attn_norm,attn,ffn_norm,mlp}.*`` (MoE:
+    ``layers.{i}.moe.{router,w_gate,w_up,w_down,shared.*}`` in place of
+    ``mlp``), ``final_norm.scale`` and, untied, ``unembed.table``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         dt = cfg.dtype("param")
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, device)
@@ -64,16 +66,22 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
     return init_params_(LM(cfg, device), gen)
 
 
+#: params the forward reads as they are stored: norm scales (the norm
+#: reads them in float32) and the float32 router (the reference computes
+#: ``xg.astype(f32) @ router``; a cast router would route otherwise)
+UNCAST = ("scale", "router")
+
+
 def compute_params(cfg: ArchConfig, params: LM) -> LM:
     """``params`` with every matrix and embedding table cast once to the
-    compute dtype; norm scales stay as they are (the norm reads them in
-    float32). The forward computes ``x @ w.to(x.dtype)`` either way, so
-    the numbers are the same; the copy saves a cast of every weight on
-    every step. Returns ``params`` itself when nothing needs a cast."""
+    compute dtype; the ``UNCAST`` params stay as they are. The forward
+    computes ``x @ w.to(x.dtype)`` either way, so the numbers are the
+    same; the copy saves a cast of every weight on every step. Returns
+    ``params`` itself when nothing needs a cast."""
     cdt = cfg.dtype("compute")
     state = params.state_dict()
     cast = {name for name, t in state.items()
-            if not name.endswith("scale") and t.dtype != cdt}
+            if not name.endswith(UNCAST) and t.dtype != cdt}
     if not cast:
         return params
     out = LM(cfg, device="meta")
@@ -102,8 +110,8 @@ def prefill(
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, cfg.num_layers, window_override)
-    x, cache = apply_stack(params.layers, x, positions, windows, cache=cache,
-                           prefill=True)
+    x, _, cache = apply_stack(params.layers, x, positions, windows,
+                              cache=cache, prefill=True)
     x = params.final_norm(x[:, -1:])
     return params.logits(x), cache
 
@@ -121,6 +129,7 @@ def decode_step(
     x = params.embed.embed(tokens, cfg.dtype("compute"))
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, cfg.num_layers, window_override)
-    x, cache = apply_stack(params.layers, x, positions, windows, cache=cache)
+    x, _, cache = apply_stack(params.layers, x, positions, windows,
+                              cache=cache)
     x = params.final_norm(x)
     return params.logits(x), cache

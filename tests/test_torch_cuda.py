@@ -6,8 +6,9 @@ CUDA ledger launching both of its kernels and deciding as the CPU run
 does; the online simulator's clean, chaos, recover, elastic and
 service paths on a CUDA ledger deciding as ``repro.sim`` on numpy or as
 the CPU run does, with the checkpoint's ledger still on the card; the
-reduced serving path launching both model kernels and answering as the
-CPU run does. Skipped where there is no card; on one,
+reduced serving path (dense and MoE) launching both model kernels and
+answering as the CPU run does, and one full-width MoE layer routing as
+the CPU does. Skipped where there is no card; on one,
 run ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
@@ -395,6 +396,71 @@ def test_reduced_serving_launches_both_kernels_and_matches_cpu(cuda):
                       cache_len=128).serve(reqs)
     for g, c in zip(gpu, cpu):
         np.testing.assert_array_equal(g.tokens, c.tokens)
+
+
+def test_reduced_moe_serving_launches_both_kernels_and_matches_cpu(cuda):
+    """Reduced Phi-3.5-MoE (float32, TF32 off): prefill routes groups of
+    64 tokens and decode groups of 4 at the default capacity."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("phi3.5-moe-42b-a6.6b", reduced=True)
+    params = build_model(cfg).init(0, cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 32).astype(np.int32),
+                    max_new_tokens=12) for i in range(8)]
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    gpu = ServeEngine(cfg, params, max_batch=4, cache_len=64).serve(reqs)
+    forwards = 2 * 12              # two batches: one prefill, 11 decodes
+    assert rmsnorm.LAUNCHES == forwards * (2 * cfg.num_layers + 1)
+    assert flash_attention.LAUNCHES == 2 * cfg.num_layers
+    cpu = ServeEngine(cfg, copy.deepcopy(params).to("cpu"), max_batch=4,
+                      cache_len=64).serve(reqs)
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.tokens, c.tokens)
+
+
+def _routing_gap(probs, k):
+    """Per token, the least gap between consecutive router
+    probabilities among its k + 1 largest."""
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+
+
+def test_full_width_moe_layer_matches_cpu(cuda):
+    """One full-width Phi-3.5-MoE layer in float32 (TF32 off) on 512
+    tokens, one group (C = 80): the routing (top-k and keep mask) is
+    identical at every token whose gap exceeds 1e-6, y within 1e-4."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params_
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    layer = init_params_(moe.MoE(cfg, cuda),
+                         torch.Generator(device=cuda).manual_seed(0))
+    on_cpu = moe.MoE(cfg, "cpu")
+    on_cpu.load_state_dict(layer.state_dict())
+    x = torch.randn((2, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        y_gpu, aux_gpu = layer(x.to(cuda))
+        y_cpu, aux_cpu = on_cpu(x)
+        xg = moe.group_tokens(cfg.moe, x)
+        r_gpu = moe.route(cfg, layer.router, xg.to(cuda))
+        r_cpu = moe.route(cfg, on_cpu.router, xg)
+    stable = _routing_gap(r_cpu.probs, cfg.moe.top_k) > 1e-6
+    assert stable.float().mean() > 0.99
+    _equal(r_gpu.top_idx[stable.to(cuda)], r_cpu.top_idx[stable])
+    _equal(r_gpu.keep[stable.to(cuda)], r_cpu.keep[stable])
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+    assert abs(float(aux_gpu) - float(aux_cpu)) <= 1e-6
+    # the forward reads nothing back to the host
+    xd = x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            layer(xd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 # ------------------------------------------------------ online simulator

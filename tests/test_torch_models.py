@@ -25,7 +25,9 @@ from repro_torch.configs import ARCH_IDS, REGISTRY, get_config
 from repro_torch.models import build_model, lm
 from repro_torch.models.attention import GQA, init_gqa_cache
 from repro_torch.models.blocks import BIG_WINDOW, layer_windows
-from repro_torch.models.layers import MLP, Embedding, apply_rope
+from repro_torch.models.layers import MLP, Embedding, apply_rope, \
+    init_params_
+from repro_torch.models.moe import MoE, group_tokens, route
 
 
 def _np_tree(tree):
@@ -183,29 +185,50 @@ def test_layer_windows_match():
 
 
 # ---------------------------------------------------------------- whole model
-@pytest.mark.parametrize("arch", ["gemma-7b", "qwen3-32b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "qwen3-32b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_prefill_and_decode_match(arch):
+    """Prefill, then decode steps through the cache, against the JAX
+    ``Model`` step by step. The MoE config runs at its default capacity
+    with a batch of 4, where the reference's grouping drops slots both in
+    prefill (one group of 64 tokens, C = 40) and in decode (a group of 4,
+    C = 3); the drops are counted by re-running ``route`` on each MoE
+    layer's input."""
     jcfg = jax_config(arch, reduced=True)
     cfg = get_config(arch, reduced=True)
     jm = jax_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     params = convert.lm_params_from_jax(cfg, _np_tree(jp), device="cpu")
     model = build_model(cfg)
+    B = 4 if cfg.moe else 2
+    drops = []
+
+    def count_drops(layer, args):
+        r = route(cfg, layer.router, group_tokens(cfg.moe, args[0]))
+        drops.append(r.top_idx.numel() - int(r.keep.sum()))
+
+    if cfg.moe:
+        for block in params.layers:
+            block.moe.register_forward_pre_hook(count_drops)
     rng = np.random.default_rng(1)
-    tokens = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (B, 16)).astype(np.int32)
     jl, js = jm.prefill(jp, {"tokens": jnp.asarray(tokens)}, 32)
     tl, ts = model.prefill(params, {"tokens": torch.from_numpy(tokens).long()},
                            32)
-    assert tl.shape == (2, 1, cfg.vocab_size) and ts["pos"] == 16
+    assert tl.shape == (B, 1, cfg.vocab_size) and ts["pos"] == 16
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                atol=1e-4)
     for _ in range(3):
-        nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+        nxt = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
         jl, js = jm.decode(jp, jnp.asarray(nxt), js)
         tl, ts = model.decode(params, torch.from_numpy(nxt).long(), ts)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)
     assert ts["pos"] == int(js["pos"]) == 19
+    if cfg.moe:
+        L = cfg.num_layers
+        assert len(drops) == 4 * L
+        assert sum(drops[:L]) > 0 and sum(drops[L:]) > 0
 
 
 def test_init_distributions():
@@ -241,6 +264,96 @@ def test_full_width_gemma_builds_without_memory():
     assert params.layers[0].mlp.w_down.shape == (24576, 3072)
 
 
+def test_full_width_phi_moe_builds_without_memory():
+    """The full-width Phi-3.5-MoE module on the meta device: 32 layers of
+    16 experts, 41.9 B parameters."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    params = lm.LM(cfg, device="meta")
+    assert len(params.layers) == 32
+    norms = (2 * 32 + 1) * 4096               # not in param_count
+    assert sum(p.numel() for p in params.parameters()) == \
+        cfg.param_count() + norms == 41_872_261_120 + norms
+    layer = params.layers[0].moe
+    assert layer.router.shape == (4096, 16)
+    assert layer.router.dtype == torch.float32
+    assert layer.w_gate.shape == layer.w_up.shape == (16, 4096, 6400)
+    assert layer.w_down.shape == (16, 6400, 4096)
+    assert not hasattr(layer, "shared") and not hasattr(params.layers[0],
+                                                        "mlp")
+    assert params.layers[0].attn.wk.shape == (4096, 8, 128)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+def test_moe_init_distributions(arch):
+    """Experts drawn at 1/sqrt(fan-in) on their second axis (d for
+    w_gate/w_up, f for w_down; the reference's ``in_axis=1``), not their
+    first (E); the router at 1/sqrt(d) in float32; shared experts as a
+    dense MLP."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              num_layers=1, param_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=16))
+    layer = init_params_(MoE(cfg), torch.Generator().manual_seed(0))
+    d, f = cfg.d_model, cfg.moe.expert_d_ff
+    for w, fan_in in ((layer.w_gate, d), (layer.w_up, d), (layer.w_down, f),
+                      (layer.router, d)):
+        w = w.float()
+        assert w.abs().max() <= 2 / fan_in ** 0.5
+        assert 0.8 / fan_in ** 0.5 < w.std() < 0.95 / fan_in ** 0.5
+    assert layer.router.dtype == torch.float32
+    assert layer.w_gate.dtype == torch.bfloat16
+    if cfg.moe.num_shared_experts:
+        w = layer.shared.w_down.float()        # fan-in: its first axis
+        fan_in = w.shape[0]
+        assert 0.8 / fan_in ** 0.5 < w.std() < 0.95 / fan_in ** 0.5
+
+
+def test_compute_params_keeps_the_router_in_float32():
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b",
+                                         reduced=True),
+                              compute_dtype="bfloat16")
+    params = lm.init(cfg, seed=1, device="cpu")
+    cast = lm.compute_params(cfg, params)
+    layer = cast.layers[0].moe
+    assert layer.router.dtype == torch.float32
+    assert torch.equal(layer.router, params.layers[0].moe.router)
+    assert layer.w_gate.dtype == layer.w_down.dtype == torch.bfloat16
+    model = build_model(cfg)
+    tokens = {"tokens": torch.arange(64).reshape(2, 32) % cfg.vocab_size}
+    a, sa = model.prefill(params, tokens, 40)
+    b, sb = model.prefill(cast, tokens, 40)
+    assert a.dtype == torch.bfloat16
+    assert torch.equal(a, b)
+    tok = torch.tensor([[5], [9]])
+    assert torch.equal(model.decode(params, tok, sa)[0],
+                       model.decode(cast, tok, sb)[0])
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+def test_convert_carries_the_moe_tree(shared):
+    """``lm_params_from_jax`` maps ``layers/moe/{router,w_gate,w_up,
+    w_down}`` (stacked on L, the expert axis second) and
+    ``layers/moe/shared/*`` onto ``layers.{i}.moe.*`` name for name."""
+    def with_shared(c):
+        return dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, num_shared_experts=shared, shared_d_ff=128 * shared))
+    jcfg = with_shared(jax_config("phi3.5-moe-42b-a6.6b", reduced=True))
+    cfg = with_shared(get_config("phi3.5-moe-42b-a6.6b", reduced=True))
+    tree = _np_tree(jax_build(jcfg).init(jax.random.PRNGKey(0)))
+    params = convert.lm_params_from_jax(cfg, tree, device="cpu")
+    stacked = _flat(tree["layers"]["moe"])
+    assert sorted(stacked) == sorted(
+        ["router", "w_gate", "w_up", "w_down"]
+        + ["shared.w_gate", "shared.w_up", "shared.w_down"] * shared)
+    for i in range(cfg.num_layers):
+        got = dict(params.layers[i].moe.named_parameters())
+        for name, arr in stacked.items():
+            assert torch.equal(got[name], arr[i]), (i, name)
+        assert got["router"].dtype == torch.float32
+    assert params.layers[1].moe.w_gate.shape == \
+        (cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff)
+
+
 def test_compute_params_casts_weights_once_and_keeps_the_numbers():
     cfg = dataclasses.replace(get_config("gemma-7b", reduced=True),
                               compute_dtype="bfloat16")
@@ -264,7 +377,7 @@ def test_compute_params_casts_weights_once_and_keeps_the_numbers():
     assert lm.compute_params(f32, same) is same
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "phi3.5-moe-42b-a6.6b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
                                   "mamba2-780m", "hymba-1.5b",
                                   "seamless-m4t-medium",
                                   "llava-next-mistral-7b"])

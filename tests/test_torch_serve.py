@@ -51,6 +51,28 @@ def test_greedy_tokens_match_the_jax_engine(gemma):
         assert g.prefill_ms > 0 and g.decode_ms > 0
 
 
+def test_moe_greedy_tokens_match_the_jax_engine():
+    """Reduced Phi-3.5-MoE (float32) from the JAX package's weights: 8
+    requests of 32 prompt tokens, 12 new, ``max_batch`` 4, so prefill
+    routes groups of 64 tokens and decode groups of 4, at the default
+    capacity (drops included)."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    jcfg = jax_config(arch, reduced=True)
+    jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    cfg = get_config(arch, reduced=True)
+    params = convert.lm_params_from_jax(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    prompts = _prompts(cfg.vocab_size, length=32)
+    want = JServeEngine(jcfg, jparams, max_batch=4, cache_len=64).serve(
+        [JRequest(i, p, max_new_tokens=12) for i, p in enumerate(prompts)])
+    got = ServeEngine(cfg, params, max_batch=4, cache_len=64).serve(
+        [Request(i, p, max_new_tokens=12) for i, p in enumerate(prompts)])
+    assert [c.request_id for c in got] == [c.request_id for c in want]
+    for g, w in zip(got, want):
+        assert g.tokens.shape == (12,)
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
+
+
 def test_groups_by_prompt_length_and_honours_max_new(gemma):
     _, _, cfg, params = gemma
     engine = ServeEngine(cfg, params, max_batch=2, cache_len=64)
@@ -94,5 +116,13 @@ def test_entry_points_default_to_the_card():
 def test_launcher_serves_on_the_cpu(capsys):
     assert launcher.main(["--requests", "2", "--prompt-len", "8",
                           "--max-new", "3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "2 requests, 6 tokens" in out and "cpu" in out
+
+
+def test_launcher_serves_the_moe_family_on_the_cpu(capsys):
+    assert launcher.main(["--arch", "phi3.5-moe-42b-a6.6b", "--requests",
+                          "2", "--prompt-len", "8", "--max-new", "3",
+                          "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "2 requests, 6 tokens" in out and "cpu" in out
