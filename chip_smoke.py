@@ -61,7 +61,22 @@ paths:
     again from each MoE layer's input by a forward pre-hook); then its
     2-layer float32 cut on the card and on the CPU, requiring identical
     greedy tokens and identical routing (top-k indices, keep masks) at
-    every token whose routing gap exceeds 1e-6.
+    every token whose routing gap exceeds 1e-6;
+  * the MLA and vision serving paths, each phase freeing the last model
+    first: MiniCPM3-4B at full width and depth (62 layers, d_model 2560,
+    40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64, vocab
+    73448, tied) with Gemma-7B's traffic through ``ServeEngine.serve``;
+    LLaVA-NeXT (Mistral-7B) at full width and depth (32 layers, 32 x 128
+    query heads over 8 kv heads, frontend_dim 1024) through
+    ``Model.prefill`` / ``decode``, two batches of 4 requests of 2880
+    random image embeddings + 128 tokens (S = 3008), 32 new tokens; and
+    DeepSeek-V2 at full width (MLA with kv_lora 512, 160 experts top-6 of
+    d_ff 1536 plus 2 shared, bf16 params) cut to 6 of its 60 layers, 8
+    prompts of 512 tokens, 16 new, max_batch 4; each with exact launch
+    counts (MLA: four norms a layer, no flash) and then its 2-layer
+    float32 cut on the card and on the CPU (identical greedy tokens,
+    logits within 1e-3; DeepSeek-V2 also identical routing above the 1e-6
+    gap; LLaVA with 256 image embeddings + 64 tokens).
 
 It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
@@ -69,7 +84,9 @@ kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
 (4, 3072), and under ``phi35_moe`` at (4096, 4096) and (4, 4096); flash
 attention on both routes and, under ``phi35_moe``, at Phi-3.5-MoE's
-prefill (4, 1024, 32 heads, 8 kv heads, 128); the offer kernels' launches
+prefill (4, 1024, 32 heads, 8 kv heads, 128), under ``llava_next`` at
+LLaVA-NeXT's (4, 3008, 32, 8, 128); rmsnorm at MLA's ranks under
+``mla_norms``; each serving phase's launches; the offer kernels' launches
 on the sim path beside the static path's, and on each of the chaos,
 recover, elastic and service paths), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
@@ -111,6 +128,28 @@ MOE_PARITY_POINT = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, requests=2,
 # cuda and cpu must route a token alike when each gap between its k + 1
 # largest router probabilities exceeds this
 ROUTING_GAP = 1e-6
+
+# MLA serving: MiniCPM3-4B at full width and depth (62 layers), Gemma's
+# traffic
+MLA_SERVE_POINT = dict(arch="minicpm3-4b", requests=8, prompt_len=1024,
+                       max_new=32, max_batch=4, seed=0)
+MLA_PARITY_POINT = dict(arch="minicpm3-4b", layers=2, requests=2,
+                        prompt_len=128, max_new=8, seed=1)
+# vision serving: LLaVA-NeXT (Mistral-7B) at full width and depth, each
+# request 2880 image embeddings (the config's frontend_tokens) + 128 text
+# tokens, through Model.prefill / decode (ServeEngine takes tokens only)
+VLM_SERVE_POINT = dict(arch="llava-next-mistral-7b", requests=8,
+                       prompt_len=128, images=2880, max_new=32, max_batch=4,
+                       seed=0)
+VLM_PARITY_POINT = dict(arch="llava-next-mistral-7b", layers=2, requests=2,
+                        prompt_len=64, images=256, max_new=8, seed=1)
+# MLA + MoE serving: DeepSeek-V2 at full width, 6 of its 60 layers (a
+# layer is 3.97 B bf16 params, 7.94 GB: 6 layers and the tables are 49.8
+# GB; the whole model is 472 GB)
+DSV2_SERVE_POINT = dict(arch="deepseek-v2-236b", layers=6, requests=8,
+                        prompt_len=512, max_new=16, max_batch=4, seed=0)
+DSV2_PARITY_POINT = dict(arch="deepseek-v2-236b", layers=2, requests=2,
+                         prompt_len=128, max_new=8, seed=1)
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -812,7 +851,12 @@ def check_model_kernels(rmsnorm, flash) -> dict:
     gen = torch.Generator().manual_seed(2)
     err = {"rmsnorm": 0.0, "flash_attention": 0.0}
     for N, d in [(4096, 3072), (4, 3072), (4096, 4096), (4, 4096),
-                 (1024 * 64, 128), (96, 512), (16, 12288), (5, 50), (300, 1)]:
+                 (1024 * 64, 128), (96, 512), (16, 12288), (5, 50), (300, 1),
+                 # MiniCPM3, DeepSeek-V2 (MLA norms, block norms) and
+                 # LLaVA's prefill rows, then their decode rows
+                 (4096, 768), (4096, 256), (4096, 2560), (2048, 1536),
+                 (2048, 512), (2048, 5120), (12032, 4096), (4, 768),
+                 (4, 256), (4, 2560), (4, 1536), (4, 512), (4, 5120)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -825,6 +869,7 @@ def check_model_kernels(rmsnorm, flash) -> dict:
     cases = [  # B, S_q, S_k, H, KV, D, causal, window, dtypes
         (4, 1024, 1024, 16, 16, 256, True, 0, ("bf16", "f32")),
         (4, 1024, 1024, 32, 8, 128, True, 0, ("bf16",)),    # Phi-3.5-MoE
+        (4, 3008, 3008, 32, 8, 128, True, 0, ("bf16",)),    # LLaVA-NeXT
         (2, 512, 512, 64, 8, 128, True, 0, ("bf16", "f32")),
         (1, 200, 200, 4, 2, 256, True, 0, ("bf16", "f32")),
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
@@ -875,6 +920,65 @@ def _requests(Request, vocab: int, n: int, length: int, max_new: int,
     rng = np.random.default_rng(seed)
     return [Request(i, rng.integers(0, vocab, length).astype(np.int32),
                     max_new_tokens=max_new) for i in range(n)]
+
+
+@dataclasses.dataclass
+class VisionRequest:
+    request_id: int
+    prompt: np.ndarray               # (S,) int32
+    image_embeds: torch.Tensor       # (N, frontend_dim) float32, host
+    max_new_tokens: int = 16
+
+
+def _vision_requests(cfg, p: dict) -> list:
+    """``p["requests"]`` requests of ``p["images"]`` random image
+    embeddings (standing in for the stubbed frontend's patch embeddings)
+    and ``p["prompt_len"]`` random tokens, from ``p["seed"]``."""
+    gen = torch.Generator().manual_seed(p["seed"])
+    rng = np.random.default_rng(p["seed"])
+    return [VisionRequest(
+        i, rng.integers(0, cfg.vocab_size, p["prompt_len"]).astype(np.int32),
+        torch.randn((p["images"], cfg.frontend_dim), generator=gen),
+        max_new_tokens=p["max_new"]) for i in range(p["requests"])]
+
+
+def _vision_server():
+    """``ServeEngine`` whose batches carry each request's image embeddings
+    into ``Model.prefill`` (the engine takes tokens only, in both
+    packages); greedy, with the engine's grouping, timing and copy of the
+    params."""
+    from repro_torch.serve import Completion, ServeEngine
+
+    class VisionServer(ServeEngine):
+        def batch(self, requests: list) -> dict:
+            return {"tokens": torch.from_numpy(np.stack(
+                        [r.prompt for r in requests]).astype(np.int64)
+                    ).to(self.device),
+                    "image_embeds": torch.stack(
+                        [r.image_embeds for r in requests]).to(self.device)}
+
+        def run_batch(self, requests: list) -> list:
+            self._sync()
+            t0 = time.perf_counter()
+            logits, state = self.model.prefill(
+                self.params, self.batch(requests), self.cache_len)
+            self._sync()
+            t1 = time.perf_counter()
+            out = [self._sample(logits[:, -1], 0.0)[:, None]]
+            for _ in range(max(r.max_new_tokens for r in requests) - 1):
+                logits, state = self.model.decode(self.params, out[-1],
+                                                  state)
+                out.append(self._sample(logits[:, 0], 0.0)[:, None])
+            tokens = torch.cat(out, dim=1)
+            self._sync()
+            t2 = time.perf_counter()
+            toks = tokens.cpu().numpy().astype(np.int32)
+            return [Completion(r.request_id, toks[i, :r.max_new_tokens],
+                               prefill_ms=(t1 - t0) * 1e3,
+                               decode_ms=(t2 - t1) * 1e3)
+                    for i, r in enumerate(requests)]
+
+    return VisionServer
 
 
 def point_config(p: dict):
@@ -931,46 +1035,65 @@ def drop_counts(record: list, cfg) -> dict:
     return out
 
 
+def norms_per_layer(cfg) -> int:
+    """rmsnorm launches a layer makes a forward: the block's two, and
+    MLA's q_norm and kv_norm (or GQA's qk-norm)."""
+    return 2 + (2 if cfg.attention == "mla" or cfg.qk_norm else 0)
+
+
 def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
-    """The point's model at full width (Gemma-7B at all 28 layers;
-    Phi-3.5-MoE cut in depth) on the card through ServeEngine.serve;
-    raises unless every completion, the prefill logits and the launch
-    counts are right. Returns the run's numbers; for MoE also the
-    dropped slots of the warm-up's forwards."""
+    """The point's model at full width (cut in depth where the point
+    says) on the card: through ServeEngine.serve, or for the vision
+    config through ``_vision_server()`` with each request's image
+    embeddings. Raises unless every completion, the prefill logits and
+    the launch counts are right. Returns the run's numbers; for MoE also
+    the dropped slots of the warm-up's forwards."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
+    torch.cuda.empty_cache()        # the last phase's model is gone
     cfg = point_config(p)
-    cache_len = p["prompt_len"] + p["max_new"] + 8
+    images = p.get("images", 0)
+    cache_len = images + p["prompt_len"] + p["max_new"] + 8
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = build_model(cfg).init(p["seed"], "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    engine = ServeEngine(cfg, params, max_batch=p["max_batch"],
-                         cache_len=cache_len)
+    if images:
+        engine = _vision_server()(cfg, params, max_batch=p["max_batch"],
+                                  cache_len=cache_len)
+        reqs = _vision_requests(cfg, p)
+    else:
+        engine = ServeEngine(cfg, params, max_batch=p["max_batch"],
+                             cache_len=cache_len)
+        reqs = _requests(Request, cfg.vocab_size, p["requests"],
+                         p["prompt_len"], p["max_new"], p["seed"])
     torch.cuda.synchronize()
     setup_peak = torch.cuda.max_memory_allocated()
-    del params                  # the engine keeps the bf16 copy it reads
-    reqs = _requests(Request, cfg.vocab_size, p["requests"],
-                     p["prompt_len"], p["max_new"], p["seed"])
+    del params                  # the engine keeps the copy it reads
 
     # warm-up (first use of each cuBLAS shape), the prefill logits, and
     # for MoE the routing of the warm-up's forwards
     routing: list = []
     hooks = record_routing(engine.params, cfg, routing) if cfg.moe else []
-    first = torch.from_numpy(np.stack([r.prompt for r in reqs[:4]])).long()
-    logits, _ = engine.model.prefill(engine.params,
-                                     {"tokens": first.cuda()}, cache_len)
-    if logits.shape != (4, 1, cfg.vocab_size) or \
+    first = reqs[:p["max_batch"]]
+    if images:
+        batch = engine.batch(first)
+    else:
+        batch = {"tokens": torch.from_numpy(
+            np.stack([r.prompt for r in first])).long().cuda()}
+    logits, _ = engine.model.prefill(engine.params, batch, cache_len)
+    want_shape = (len(first), 1, cfg.vocab_size)
+    if tuple(logits.shape) != want_shape or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} are "
-                             f"not finite (4, 1, {cfg.vocab_size})")
-    del logits
+                             f"not finite {want_shape}")
+    del logits, batch
     engine.run_batch([dataclasses.replace(r, max_new_tokens=2)
-                      for r in reqs[:4]])
+                      for r in first])
     for h in hooks:
         h.remove()
     drops = drop_counts(routing, cfg) if cfg.moe else None
@@ -988,9 +1111,11 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     serve_peak = torch.cuda.max_memory_allocated()
 
     batches = -(-p["requests"] // p["max_batch"])
-    forwards = batches * p["max_new"]            # 1 prefill + 31 decodes
-    want = {"rmsnorm": forwards * (2 * cfg.num_layers + 1),
-            "flash_attention": batches * cfg.num_layers}
+    forwards = batches * p["max_new"]            # 1 prefill + decodes
+    gqa = cfg.attention == "gqa"
+    want = {"rmsnorm": forwards * (norms_per_layer(cfg) * cfg.num_layers
+                                   + 1),
+            "flash_attention": batches * cfg.num_layers if gqa else 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if sorted(c.request_id for c in done) != list(range(p["requests"])):
@@ -1006,7 +1131,9 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
         t1 = time.perf_counter()
         engine.serve(reqs)
         prof_wall = time.perf_counter() - t1
-    norm_split = rmsnorm_by_shape(prof, batches, cfg.num_layers)
+    norm_split = rmsnorm_by_shape(prof, batches,
+                                  norms_per_layer(cfg) * cfg.num_layers,
+                                  want["rmsnorm"])
     by_kernel, flash_calls = {}, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1015,10 +1142,12 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e6
         if "flash_fwd_kernel" in ev.key:
             flash_calls[ev.key] = flash_calls.get(ev.key, 0) + ev.count
-    # every prefill's attention ran on the tensor-core kernel
-    if len(flash_calls) != 1 or \
-            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or \
-            sum(flash_calls.values()) != want["flash_attention"]:
+    # every GQA prefill's attention ran on the tensor-core kernel; MLA
+    # runs none
+    if gqa and (len(flash_calls) != 1 or
+                "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
+                sum(flash_calls.values()) != want["flash_attention"]) or \
+            not gqa and flash_calls:
         raise AssertionError(f"profiled serving run's attention kernels "
                              f"{flash_calls}, want {want['flash_attention']}"
                              f" launches of flash_fwd_kernel_tc")
@@ -1044,22 +1173,24 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     return out
 
 
-def rmsnorm_by_shape(prof, batches: int, layers: int):
+def rmsnorm_by_shape(prof, batches: int, prefill_norms: int,
+                     launches: int):
     """The profiled serving run's rmsnorm device time split by launch
-    shape. The engine fixes the order of the launches, and the exact
-    launch count holds it: each batch's prefill runs 2 * layers norms at
-    (max_batch * prompt_len, d), then its final norm and every decode
-    forward run at (max_batch, d). The launches, in device order, are
-    split so; None when the profiler lost a launch."""
+    shape. The server fixes the order of the launches, and the exact
+    launch count holds it: each batch's prefill runs ``prefill_norms``
+    norms on its max_batch * prompt rows (the block norms at d_model and
+    MLA's at its ranks), then its final norm and every decode forward run
+    on max_batch rows. The launches, in device order, are split so; None
+    unless the profiler recorded all ``launches``."""
     evs = sorted((ev for ev in prof.events()
                   if "rmsnorm_kernel" in ev.name),
                  key=lambda ev: ev.time_range.start)
-    per_batch, rem = divmod(len(evs), batches)
-    if rem or not evs:
+    if len(evs) != launches:
         return None
+    per_batch = launches // batches
     out = {"prefill_shape": [0, 0.0], "decode_shape": [0, 0.0]}
     for i, ev in enumerate(evs):
-        side = out["prefill_shape" if i % per_batch < 2 * layers
+        side = out["prefill_shape" if i % per_batch < prefill_norms
                    else "decode_shape"]
         side[0] += 1
         side[1] += (ev.time_range.end - ev.time_range.start) / 1e6
@@ -1068,15 +1199,19 @@ def rmsnorm_by_shape(prof, batches: int, layers: int):
 
 
 def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
-    """The full-width model cut to ``p["layers"]`` layers in float32,
-    served on the card and on the CPU from the same weights: identical
-    greedy tokens, last-position prefill logits within rtol=atol 1e-3;
-    for MoE, identical top-k indices and keep masks in every layer and
-    forward at every token whose routing gap exceeds ``ROUTING_GAP``."""
+    """The full-width model cut to ``p["layers"]`` layers in float32
+    (params and compute), served on the card and on the CPU from the
+    same weights (the vision config with each request's image
+    embeddings): identical greedy tokens, last-position prefill logits
+    within rtol=atol 1e-3; for MoE, identical top-k indices and keep
+    masks in every layer and forward at every token whose routing gap
+    exceeds ``ROUTING_GAP``."""
     from repro_torch.models import build_model, lm
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = dataclasses.replace(point_config(p), compute_dtype="float32")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(point_config(p), compute_dtype="float32",
+                              param_dtype="float32")
     model = build_model(cfg)
     gpu = model.init(p["seed"], "cuda")
     cpu = lm.LM(cfg, "cpu")
@@ -1085,20 +1220,32 @@ def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
     if cfg.moe:
         for name, params in (("cuda", gpu), ("cpu", cpu)):
             record_routing(params, cfg, routing[name])
-    cache_len = p["prompt_len"] + p["max_new"] + 8
-    reqs = _requests(Request, cfg.vocab_size, p["requests"], p["prompt_len"],
-                     p["max_new"], p["seed"])
-    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).long()
-    lg, _ = model.prefill(gpu, {"tokens": tokens.cuda()}, cache_len)
-    lc, _ = model.prefill(cpu, {"tokens": tokens}, cache_len)
+    images = p.get("images", 0)
+    cache_len = images + p["prompt_len"] + p["max_new"] + 8
+    if images:
+        reqs = _vision_requests(cfg, p)
+        servers = {name: _vision_server()(cfg, params,
+                                          max_batch=p["requests"],
+                                          cache_len=cache_len)
+                   for name, params in (("cuda", gpu), ("cpu", cpu))}
+        batches = {name: srv.batch(reqs) for name, srv in servers.items()}
+    else:
+        reqs = _requests(Request, cfg.vocab_size, p["requests"],
+                         p["prompt_len"], p["max_new"], p["seed"])
+        servers = {name: ServeEngine(cfg, params, max_batch=p["requests"],
+                                     cache_len=cache_len)
+                   for name, params in (("cuda", gpu), ("cpu", cpu))}
+        tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).long()
+        batches = {"cuda": {"tokens": tokens.cuda()},
+                   "cpu": {"tokens": tokens}}
+    lg, _ = model.prefill(gpu, batches["cuda"], cache_len)
+    lc, _ = model.prefill(cpu, batches["cpu"], cache_len)
     err = _max_err(lg.cpu(), lc, "parity prefill logits", rtol=1e-3,
                    atol=1e-3)
     out = {}
-    for name, params in (("cuda", gpu), ("cpu", cpu)):
-        engine = ServeEngine(cfg, params, max_batch=p["requests"],
-                             cache_len=cache_len)
+    for name, server in servers.items():
         t0 = time.perf_counter()
-        out[name] = engine.serve(reqs)
+        out[name] = server.serve(reqs)
         out[name + "_s"] = time.perf_counter() - t0
     for g, c in zip(out["cuda"], out["cpu"]):
         if not np.array_equal(g.tokens, c.tokens):
@@ -1109,7 +1256,7 @@ def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
                cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
     if cfg.moe:
         res["routing"] = same_routing(routing["cuda"], routing["cpu"], cfg)
-    del gpu, routing
+    del gpu, cpu, servers, batches, routing, lg
     torch.cuda.empty_cache()
     return res
 
@@ -1193,15 +1340,18 @@ def flash_numbers(flash, q, k, v) -> dict:
 
 
 def print_serving(label: str, p: dict, sv: dict) -> None:
+    images = p.get("images", 0)
+    steps = p["max_new"] - 1
     print(f"{label} ({p['arch']}, {sv['layers']} layers, {p['requests']} "
-          f"requests x {p['prompt_len']} prompt + {p['max_new']} new, "
+          f"requests x " + (f"{images} image embeddings + " if images else "")
+          + f"{p['prompt_len']} prompt + {p['max_new']} new, "
           f"max_batch {p['max_batch']}, greedy): wall {sv['wall']:.4f} s, "
           f"{sv['tokens']} tokens, {sv['tok_per_s']:.2f} tok/s; per batch "
-          f"(prefill ms, decode ms) "
-          f"{[(round(a, 3), round(b, 3)) for a, b in sv['per_batch']]}; "
+          f"(prefill ms, decode ms for {steps} steps, decode ms a step) "
+          f"{[(round(a, 3), round(b, 3), round(b / steps, 3)) for a, b in sv['per_batch']]}; "
           f"launches {sv['launches']}; init {sv['init_s']:.2f} s; peak "
-          f"memory {sv['setup_peak_gb']:.2f} GB at set-up (f32 params + "
-          f"bf16 copy), {sv['serve_peak_gb']:.2f} GB while serving")
+          f"memory {sv['setup_peak_gb']:.2f} GB at set-up (params + "
+          f"compute copy), {sv['serve_peak_gb']:.2f} GB while serving")
     print(f"{label} device busy {sv['busy']:.4f} s of a profiled "
           f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
           f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s "
@@ -1209,13 +1359,33 @@ def print_serving(label: str, p: dict, sv: dict) -> None:
           f"top kernels by device time: " + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
     split = sv["rmsnorm_split"]
-    rows = {"prefill_shape": p["max_batch"] * p["prompt_len"],
+    rows = {"prefill_shape": p["max_batch"] * (images + p["prompt_len"]),
             "decode_shape": p["max_batch"]}
     print(f"{label} rmsnorm device time by launch shape: " + (
         "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
                   f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
                   for k, v in split.items())
         if split else "not measured (the profiler lost launches)"))
+    if sv["drops"]:
+        print(f"{label} dropped (token, k) slots a forward (warm-up "
+              "forwards, routed again from each layer's input): " + "; ".join(
+                  f"{T} tokens (groups of {r['group']}, C = {r['capacity']})"
+                  f": {r['dropped_per_forward']} of {r['slots']} over "
+                  f"{sv['layers']} layers, by layer {r['per_layer']}"
+                  for T, r in sorted(sv["drops"].items())))
+
+
+def print_parity(label: str, p: dict, pa: dict) -> None:
+    line = (f"{label} ({p['layers']}-layer full-width f32, cuda vs cpu): "
+            f"identical greedy tokens {pa['tokens'][0]}..., prefill logits "
+            f"max abs err {pa['logits_err']:.3e}; ")
+    if "routing" in pa:
+        ro = pa["routing"]
+        line += (f"routing identical over {ro['records']} layer-forwards, "
+                 f"{ro['tokens']} tokens, {ro['at_or_below_gap']} at or "
+                 f"below the {ROUTING_GAP} gap, least gap "
+                 f"{ro['least_gap']:.3e}; ")
+    print(line + f"serve cuda {pa['cuda_s']:.4f} s, cpu {pa['cpu_s']:.4f} s")
 
 
 def main() -> int:
@@ -1315,21 +1485,8 @@ def main() -> int:
     # 2-layer float32 cut on cuda and cpu with the routing compared
     moe_sv = serve_full_width(rmsnorm, flash, MOE_SERVE_POINT)
     print_serving("moe serving", MOE_SERVE_POINT, moe_sv)
-    print("moe serving dropped (token, k) slots a forward (warm-up "
-          "forwards, routed again from each layer's input): " + "; ".join(
-              f"{T} tokens (groups of {r['group']}, C = {r['capacity']}): "
-              f"{r['dropped_per_forward']} of {r['slots']} over "
-              f"{moe_sv['layers']} layers, by layer {r['per_layer']}"
-              for T, r in sorted(moe_sv["drops"].items())))
-    mpa = parity_cuda_cpu(MOE_PARITY_POINT)
-    ro = mpa["routing"]
-    print(f"moe parity ({MOE_PARITY_POINT['layers']}-layer full-width f32, "
-          f"cuda vs cpu): identical greedy tokens {mpa['tokens'][0]}..., "
-          f"prefill logits max abs err {mpa['logits_err']:.3e}; routing "
-          f"identical over {ro['records']} layer-forwards, {ro['tokens']} "
-          f"tokens, {ro['at_or_below_gap']} at or below the {ROUTING_GAP} "
-          f"gap, least gap {ro['least_gap']:.3e}; serve cuda "
-          f"{mpa['cuda_s']:.4f} s, cpu {mpa['cpu_s']:.4f} s")
+    print_parity("moe parity", MOE_PARITY_POINT,
+                 parity_cuda_cpu(MOE_PARITY_POINT))
 
     # 8. times at the main paths' shapes
     gen = torch.Generator().manual_seed(1)
@@ -1349,7 +1506,15 @@ def main() -> int:
     rmoe = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(4096).cuda())
     rmoe_dec = rmsnorm_numbers(rmsnorm, x[:4].cuda(),
                                torch.ones(4096).cuda())
-    for f in (rnum, rdec, rmoe, rmoe_dec):
+    # MLA's q_norm / kv_norm: MiniCPM3 on 4 x 1024 prefill rows, DeepSeek-V2
+    # on 4 x 512, and both on the 4 decode rows
+    rmla = {}
+    for N, d in ((4096, 768), (4096, 256), (2048, 1536), (2048, 512)):
+        x = (torch.randn((N, d), generator=gen) * 3).to(torch.bfloat16)
+        one = torch.ones(d).cuda()
+        rmla[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
+        rmla[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
+    for f in (rnum, rdec, rmoe, rmoe_dec, *rmla.values()):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -1369,15 +1534,42 @@ def main() -> int:
                              (4, 1024, 8, 128)))
     fmoe = flash_numbers(flash, q, k, v)       # Phi-3.5-MoE prefill
     del q, k, v
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+               for shape in ((4, 3008, 32, 128), (4, 3008, 8, 128),
+                             (4, 3008, 8, 128)))
+    fvlm = flash_numbers(flash, q, k, v)       # LLaVA-NeXT prefill
+    del q, k, v
     for label, f in (("bf16, tensor cores", fnum),
                      ("float32, CUDA cores", fnum["float32"]),
                      ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"]),
-                     ("bf16 at Phi-3.5-MoE's prefill", fmoe)):
+                     ("bf16 at Phi-3.5-MoE's prefill", fmoe),
+                     ("bf16 at LLaVA-NeXT's prefill", fvlm)):
         print(f"flash {f['shape']} kv_heads {f['kv_heads']} causal "
               f"({label}): device {f['device_ms']} ms, events {f['ms']} ms,"
               f" {f['tflops']} TFLOP/s, {f['bound_share']} of the "
               f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
               f"{f['plain_ms']} ms, library {f['library_ms']} ms")
+    # 8b. MLA, vision and MLA + MoE serving: MiniCPM3-4B and LLaVA-NeXT
+    # at full width and depth, DeepSeek-V2 at full width cut to 6 layers;
+    # each then its 2-layer float32 cut on cuda and cpu. After the kernel
+    # times: with these long profiled runs (MiniCPM3's alone is ~10^5
+    # kernels) before them, the profiler recorded no device time for the
+    # flash kernel's timing sessions
+    served = {}
+    for key, label, point, parity in (
+            ("minicpm3_4b", "mla serving", MLA_SERVE_POINT,
+             MLA_PARITY_POINT),
+            ("llava_next", "vision serving", VLM_SERVE_POINT,
+             VLM_PARITY_POINT),
+            ("deepseek_v2", "mla+moe serving", DSV2_SERVE_POINT,
+             DSV2_PARITY_POINT)):
+        t0 = time.perf_counter()
+        served[key] = serve_full_width(rmsnorm, flash, point)
+        print_serving(label, point, served[key])
+        print_parity(label.replace("serving", "parity"), parity,
+                     parity_cuda_cpu(parity))
+        print(f"{label} phase wall {time.perf_counter() - t0:.2f} s")
+
     # 9. the online simulator on the card (the offer kernels inside the
     # event engine), against the CPU; last, so its long profiled run
     # comes after every kernel timing
@@ -1508,7 +1700,11 @@ def main() -> int:
          "serving_split": sv["rmsnorm_split"],
          "phi35_moe": {"launches": moe_sv["launches"]["rmsnorm"],
                        "prefill_shape": rmoe, "decode_shape": rmoe_dec,
-                       "serving_split": moe_sv["rmsnorm_split"]}},
+                       "serving_split": moe_sv["rmsnorm_split"]},
+         **{key: {"launches": sv_["launches"]["rmsnorm"],
+                  "serving_split": sv_["rmsnorm_split"]}
+            for key, sv_ in served.items()},
+         "mla_norms": rmla},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1516,7 +1712,12 @@ def main() -> int:
          "launches": sv["launches"]["flash_attention"],
          "max_abs_err": merr["flash_attention"], **fnum,
          "phi35_moe": {"launches": moe_sv["launches"]["flash_attention"],
-                       **fmoe}},
+                       **fmoe},
+         "llava_next": {"launches":
+                        served["llava_next"]["launches"]["flash_attention"],
+                        **fvlm},
+         **{f"{key}_launches": served[key]["launches"]["flash_attention"]
+            for key in ("minicpm3_4b", "deepseek_v2")}},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -78,18 +78,29 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A torch copy of ``arr``; numpy's bfloat16 (ml_dtypes, as
+    ``np.asarray`` of a bf16 jax array gives) crosses by its bits."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def lm_params_from_jax(cfg, tree: Mapping, device=None):
     """The port's ``LM`` params from the JAX package's ``lm.init`` tree
     (nested dicts of numpy arrays): ``embed/table``, ``unembed/table``,
     ``final_norm/scale`` and ``layers/...`` stacked on a leading L axis
-    (``attn_norm/scale``, ``attn/{wq,wk,wv,wo,q_norm,k_norm}``,
+    (``attn_norm/scale``, ``attn/{wq,wk,wv,wo,q_norm,k_norm}`` or for MLA
+    ``attn/{w_dq,q_norm/scale,w_uq,w_dkv,kv_norm/scale,w_uk,w_uv,wo}``,
     ``ffn_norm/scale``, ``mlp/{w_gate,w_up,w_down}``, or for MoE
     ``moe/{router,w_gate,w_up,w_down}`` with the expert axis second and
-    ``moe/shared/{w_gate,w_up,w_down}``). The port's modules keep the
-    tree's names and per-layer layouts, so layer i of every stacked array
-    becomes ``layers.{i}.<name>``. Every array is copied into the param
-    of that name (the config's param dtype; the router float32); missing
-    or extra names raise."""
+    ``moe/shared/{w_gate,w_up,w_down}``), and for the vision frontend
+    ``projector/{w1,w2}``. The port's modules keep the tree's names and
+    per-layer layouts, so layer i of every stacked array becomes
+    ``layers.{i}.<name>``. Every array is copied into the param of that
+    name (the config's param dtype, bf16 included; the router float32);
+    missing or extra names raise."""
     device = resolve_device(device)
     flat = _flatten(tree)
     state: Dict[str, torch.Tensor] = {}
@@ -100,10 +111,9 @@ def lm_params_from_jax(cfg, tree: Mapping, device=None):
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
                                  f"{cfg.num_layers} layers")
             for i in range(cfg.num_layers):
-                state[f"layers.{i}.{rest}"] = torch.from_numpy(
-                    np.array(arr[i]))
+                state[f"layers.{i}.{rest}"] = _tensor(arr[i])
         else:
-            state[name] = torch.from_numpy(np.array(arr))
+            state[name] = _tensor(arr)
     params = LM(cfg, device=device)
     params.load_state_dict(state, strict=True)
     return params

@@ -6,9 +6,13 @@ CUDA card by default.
 
 The flags and defaults of the JAX package's launcher (the reduced config,
 random weights from seed 0), plus ``--device`` (``cpu`` runs the kernels'
-plain versions). ``--arch`` takes the dense and MoE families
-(``phi3.5-moe-42b-a6.6b``); the others raise "later slice". Loading a
-checkpoint (``--ckpt-dir``) comes with the training slice.
+plain versions). ``--arch`` takes the dense, MoE
+(``phi3.5-moe-42b-a6.6b``), MLA (``minicpm3-4b``, ``deepseek-v2-236b``)
+and vision (``llava-next-mistral-7b``) families; the others raise "later
+slice". The vision config is served text only, as the JAX package's
+``ServeEngine`` serves it: the engine takes tokens, so no image
+embeddings go in. Loading a checkpoint (``--ckpt-dir``) comes with the
+training slice.
 ``chip_smoke.py`` serves the full-width config.
 """
 import argparse

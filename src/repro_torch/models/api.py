@@ -7,10 +7,12 @@ The port of the JAX package's ``models/api.py``:
     logits, state = model.prefill(params, batch, cache_len)
     logits, state = model.decode(params, tokens, state)
 
-``state`` is {"cache": per-layer caches, "pos": host int}; ``decode``
-updates the caches in place. The training loss (``train_loss``), the
-enc-dec backbone and the dry-run spec helpers (``input_specs``,
-``serve_state_specs``, ``concrete_batch``) come with later slices.
+``batch`` is {"tokens"} plus, for the vision configs, {"image_embeds"};
+``state`` is {"cache": per-layer caches, "pos": host int}, where ``pos``
+counts the image tokens; ``decode`` updates the caches in place. The
+training loss (``train_loss``), the enc-dec backbone and the dry-run spec
+helpers (``input_specs``, ``serve_state_specs``, ``concrete_batch``)
+come with later slices.
 """
 from __future__ import annotations
 
@@ -44,6 +46,11 @@ class Model:
                 window_override: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         B, S = batch["tokens"].shape
+        if self.cfg.frontend == "vision" and "image_embeds" in batch:
+            S += batch["image_embeds"].shape[1]
+        if S > cache_len:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache of "
+                             f"{cache_len}")
         state = self.init_serve_state(B, cache_len, lm.param_device(params))
         logits, cache = lm.prefill(self.cfg, params, batch, state["cache"],
                                    window_override)

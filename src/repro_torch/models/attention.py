@@ -1,8 +1,9 @@
-"""Grouped-query attention (GQA/MQA, with qk-norm, RoPE, sliding window)
-and its ring-buffer KV cache.
+"""Attention: grouped-query attention (GQA/MQA, with qk-norm, RoPE,
+sliding window), multi-head latent attention (MLA: DeepSeek-V2,
+MiniCPM3), and their caches.
 
-The port of the JAX package's ``models/attention.py`` for the dense GQA
-path. Attention takes one of two routes, chosen by the caller:
+The port of the JAX package's ``models/attention.py`` for decoder
+self-attention. GQA takes one of two routes, chosen by the caller:
 
   * **prefill** (``prefill=True``, from ``lm.prefill``): the prompt's own
     q, k, v go through ``repro_torch.kernels.ops.flash_attention`` — the
@@ -18,12 +19,20 @@ path. Attention takes one of two routes, chosen by the caller:
     computes this in jnp outside any Pallas kernel too; the kernel's
     index-causal contract cannot express ring-buffer positions.
 
-The cache is a dict of tensors updated IN PLACE (k, v, positions) plus a
-host integer ``pos``; the reference returns a new cache instead. Keeping
-``pos`` on the host leaves the ring-buffer slot arithmetic off the
-device, so a decode step never waits for the card.
+MLA follows the reference's two branches: with a cache (prefill and
+decode alike) the **absorbed** form, which folds ``w_uk`` into the query
+and attends over the whole latent cache as one shared kv head; without a
+cache the **expanded** form, per-head K/V through ``grouped_attention``.
+Neither goes through the flash kernel: the absorbed q·k width is
+kv_lora + rope (288 for MiniCPM3, 576 for DeepSeek-V2) against a v width
+of kv_lora, and the kernel takes only equal k and v widths of at most
+256. The reference computes MLA in jnp outside any Pallas kernel too.
 
-MLA (DeepSeek-V2, MiniCPM3) is ported in a later slice.
+A cache is a dict of tensors updated IN PLACE (GQA: k, v; MLA: c_kv,
+k_rope; both: positions) plus a host integer ``pos``; the reference
+returns a new cache instead. Keeping ``pos`` on the host leaves the
+ring-buffer slot arithmetic off the device, so a decode step never waits
+for the card.
 """
 from __future__ import annotations
 
@@ -84,6 +93,12 @@ def grouped_attention(
     return o.reshape(B, S_q, H, v.shape[-1]).to(q.dtype)
 
 
+def _project(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (B*S, d) x (d, h*k) product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k).to(x.dtype)).view(*x.shape[:-1], h, k)
+
+
 # ================================================================= GQA
 class GQA(nn.Module):
     """Causal self-attention. Params ``wq`` (d,H,hd), ``wk``/``wv``
@@ -104,11 +119,6 @@ class GQA(nn.Module):
             self.q_norm = RMSNorm(hd, dt, device)
             self.k_norm = RMSNorm(hd, dt, device)
 
-    def _project(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """einsum("bsd,dhk->bshk") as one (B*S, d) x (d, h*k) product."""
-        d, h, k = w.shape
-        return (x @ w.reshape(d, h * k).to(x.dtype)).view(*x.shape[:-1], h, k)
-
     def forward(
         self,
         x: torch.Tensor,                 # (B, S, d)
@@ -119,9 +129,9 @@ class GQA(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self._project(self.wq, x)
-        k = self._project(self.wk, x)
-        v = self._project(self.wv, x)
+        q = _project(self.wq, x)
+        k = _project(self.wk, x)
+        v = _project(self.wv, x)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -131,7 +141,7 @@ class GQA(nn.Module):
         if prefill:
             out = self._prefill_attention(q, k, v, positions, window, cache)
         elif cache is not None:
-            _write(cache, k, v, positions)
+            _write(cache, positions, k=k, v=v)
             out = grouped_attention(q, cache["k"], cache["v"], positions,
                                     cache["positions"], window=window,
                                     softcap=cfg.attn_logit_softcap)
@@ -154,7 +164,7 @@ class GQA(nn.Module):
             raise NotImplementedError("the flash route has no logit softcap")
         if window is not None and window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        _write(cache, k, v, positions)
+        _write(cache, positions, k=k, v=v)
         return ops.flash_attention(q, k, v, causal=True, window=window or 0)
 
 
@@ -171,32 +181,131 @@ def init_gqa_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
     }
 
 
-def _write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
-           positions: torch.Tensor) -> None:
-    """Ring-buffer write of S new entries at ``pos % cache_len``, in place.
-    The start is clamped so the S entries fit, as
-    ``jax.lax.dynamic_update_slice`` clamps it."""
-    cache_len = cache["k"].shape[1]
-    S = k.shape[1]
+def _write(cache: Cache, positions: torch.Tensor,
+           **new: torch.Tensor) -> None:
+    """Ring-buffer write of S new entries of each named cache tensor
+    (``k=..., v=...`` or ``c_kv=..., k_rope=...``, each (B, S, ...)) at
+    ``pos % cache_len``, in place. The start is clamped so the S entries
+    fit, as ``jax.lax.dynamic_update_slice`` clamps it."""
+    cache_len = cache["positions"].shape[0]
+    S = positions.shape[0]
     start = min(cache["pos"] % cache_len, cache_len - S)
-    cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
-    cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+    for name, t in new.items():
+        cache[name][:, start:start + S] = t.to(cache[name].dtype)
     cache["positions"][start:start + S] = positions.to(torch.int32)
     cache["pos"] += S
 
 
+# ================================================================= MLA
+class MLA(nn.Module):
+    """Multi-head latent attention. Params ``w_dq`` (d, q_lora),
+    ``q_norm``, ``w_uq`` (q_lora, H, nope+rope), ``w_dkv`` (d,
+    kv_lora+rope), ``kv_norm``, ``w_uk`` (kv_lora, H, nope), ``w_uv``
+    (kv_lora, H, v) and ``wo`` (H, v, d), named as the reference's."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.num_heads
+        dt = cfg.dtype("param")
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.w_dq = _param((d, m.q_lora_rank), dt, device)
+        self.q_norm = RMSNorm(m.q_lora_rank, dt, device)
+        self.w_uq = _param((m.q_lora_rank, H, qk), dt, device)
+        self.w_dkv = _param((d, m.kv_lora_rank + m.qk_rope_head_dim), dt,
+                            device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dt, device)
+        self.w_uk = _param((m.kv_lora_rank, H, m.qk_nope_head_dim), dt,
+                           device)
+        self.w_uv = _param((m.kv_lora_rank, H, m.v_head_dim), dt, device)
+        self.wo = _param((H, m.v_head_dim, d), dt, device)
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """The reference's ``_mla_qkv``: (q_nope, q_rope, c_kv, k_rope)."""
+        m = self.cfg.mla
+        theta = self.cfg.rope_theta
+        cq = self.q_norm(x @ self.w_dq.to(x.dtype))
+        q = _project(self.w_uq, cq)
+        q_nope = q[..., :m.qk_nope_head_dim]
+        q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, theta)
+        dkv = x @ self.w_dkv.to(x.dtype)
+        c_kv = self.kv_norm(dkv[..., :m.kv_lora_rank])
+        k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :],
+                            positions, theta)[:, :, 0, :]
+        return q_nope, q_rope, c_kv, k_rope
+
+    def forward(
+        self,
+        x: torch.Tensor,                 # (B, S, d)
+        positions: torch.Tensor,         # (S,) int32
+        window: Optional[int] = None,
+        cache: Optional[Cache] = None,
+        prefill: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """With a cache, prefill (``prefill=True``) and decode alike take
+        the absorbed branch over the whole cache, as the reference's
+        ``lm.prefill`` does; the flag selects no other route."""
+        m = self.cfg.mla
+        B, S, _ = x.shape
+        H = self.cfg.num_heads
+        q_nope, q_rope, c_kv, k_rope = self._qkv(x, positions)
+        if cache is not None:
+            _write(cache, positions, c_kv=c_kv, k_rope=k_rope)
+            out = self._absorbed(q_nope, q_rope, cache, positions, window)
+        else:
+            k_nope = torch.einsum("btl,lhn->bthn", c_kv,
+                                  self.w_uk.to(x.dtype))
+            v = torch.einsum("btl,lhv->bthv", c_kv, self.w_uv.to(x.dtype))
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+                B, S, H, m.qk_rope_head_dim)], dim=-1)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            out = grouped_attention(q, k, v, positions, positions,
+                                    window=window,
+                                    scale=1.0 / math.sqrt(q.shape[-1]))
+        Hv = H * m.v_head_dim
+        y = out.reshape(B, S, Hv) @ self.wo.reshape(Hv, -1).to(x.dtype)
+        return y, cache
+
+    def _absorbed(self, q_nope, q_rope, cache, positions, window):
+        """``w_uk`` folded into the query: scores over the latent cache
+        (B, H, S, T) in float32, context in the latent space, then
+        ``w_uv``; the reference's rounding points."""
+        m = self.cfg.mla
+        dt = q_nope.dtype
+        c_all = cache["c_kv"].to(torch.float32)
+        r_all = cache["k_rope"].to(torch.float32)
+        q_abs = torch.einsum("bshn,lhn->bshl", q_nope, self.w_uk.to(dt))
+        scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+        s = (torch.einsum("bshl,btl->bhst", q_abs.to(torch.float32), c_all)
+             + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
+                            r_all)) * scale
+        s = s + _bias(positions, cache["positions"], True, window)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhst,btl->bshl", p, c_all)
+        return torch.einsum("bshl,lhv->bshv", ctx.to(dt), self.w_uv.to(dt))
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                   device=None) -> Cache:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "positions": torch.full((cache_len,), -1, dtype=torch.int32,
+                                device=device),
+        "pos": 0,
+    }
+
+
 # ================================================================= dispatch
 def make_attention(cfg: ArchConfig, device=None) -> nn.Module:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "MLA attention (DeepSeek-V2, MiniCPM3) is ported in a later "
-            "slice of repro_torch")
-    return GQA(cfg, device)
+    return MLA(cfg, device) if cfg.attention == "mla" else GQA(cfg, device)
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
                          device=None) -> Cache:
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "the MLA cache is ported in a later slice of repro_torch")
-    return init_gqa_cache(cfg, batch, cache_len, dtype, device)
+    init = init_mla_cache if cfg.attention == "mla" else init_gqa_cache
+    return init(cfg, batch, cache_len, dtype, device)

@@ -1,17 +1,17 @@
-"""Transformer block and layer stack for the GQA decoder.
+"""Transformer block and layer stack for the attention decoder.
 
-The port of the JAX package's ``models/blocks.py`` for the dense and MoE
-families: attn -> mlp, or attn -> moe (+ shared experts); pre-norm,
-residual. The reference stacks every layer's params on a leading L axis
-and scans one block over them; here the stack is an ``nn.ModuleList``
-walked by a Python loop, and each layer's cache is its own dict (a list
-of them for the stack). Per-layer windows are a list of ints (or None).
+The port of the JAX package's ``models/blocks.py`` for the dense, MoE,
+MLA and vision-language families: attn (GQA or MLA) -> mlp, or attn ->
+moe (+ shared experts); pre-norm, residual. The reference stacks every
+layer's params on a leading L axis and scans one block over them; here
+the stack is an ``nn.ModuleList`` walked by a Python loop, and each
+layer's cache is its own dict (a list of them for the stack). Per-layer windows are a list of ints (or None).
 Each block returns its router aux loss and the stack sums them, as the
 reference's scan does.
 
 SSM (Mamba-2), hybrid (Hymba) and cross-attention (enc-dec) blocks and
-the modality frontends are ported in later slices and raise
-``NotImplementedError`` here.
+the audio frontend are ported in later slices and raise
+``NotImplementedError`` here; the vision frontend is ``lm.Projector``.
 """
 from __future__ import annotations
 
@@ -40,14 +40,13 @@ def has_mlp(cfg: ArchConfig) -> bool:
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise for the block families the port does not have yet (MLA
-    attention raises in ``attention.make_attention``)."""
+    """Raise for the block families the port does not have yet."""
     missing = []
     if cfg.ssm is not None or cfg.hybrid or not has_attention(cfg):
         missing.append("SSM/hybrid")
     if cfg.encoder_layers:
         missing.append("encoder-decoder cross-attention")
-    if cfg.frontend is not None:
+    if cfg.frontend not in (None, "vision"):
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
         raise NotImplementedError(

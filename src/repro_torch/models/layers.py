@@ -113,11 +113,11 @@ class Embedding(nn.Module):
 
 def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Fill every parameter of ``module`` in place with the reference's
-    distributions: norm scales 1, embedding tables truncated normal
-    x 0.02, every other weight truncated normal x 1/sqrt(fan-in). The
-    fan-in is the weight's first axis (the reference's ``dense_init(...,
-    in_axis=0)``) unless its module's ``fan_in_axis`` names another: the
-    experts' ``in_axis=1``."""
+    distributions, drawn in float32: norm scales 1, embedding tables
+    truncated normal x 0.02, every other weight truncated normal x
+    1/sqrt(fan-in). The fan-in is the weight's first axis (the
+    reference's ``dense_init(..., in_axis=0)``) unless its module's
+    ``fan_in_axis`` names another: the experts' ``in_axis=1``."""
     with torch.no_grad():
         for mod in module.modules():
             axes = getattr(mod, "fan_in_axis", {})
@@ -125,8 +125,25 @@ def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
                 if name == "scale":
                     p.fill_(1.0)
                 elif name == "table":
-                    trunc_normal_(p, EMBED_STD, gen)
+                    _fill(p, EMBED_STD, gen)
                 else:
                     fan_in = p.shape[axes.get(name, 0)]
-                    trunc_normal_(p, 1.0 / math.sqrt(fan_in), gen)
+                    _fill(p, 1.0 / math.sqrt(fan_in), gen)
     return module
+
+
+#: elements drawn at a time for a param stored below float32
+DRAW_CHUNK = 1 << 26
+
+
+def _fill(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """``trunc_normal_`` in float32; a param stored in another dtype is
+    drawn in float32 and cast, as the reference's ``dense_init`` casts,
+    ``DRAW_CHUNK`` elements at a time so the float32 draw of a large
+    bf16 expert stack needs no float32 copy of it."""
+    if p.dtype == torch.float32:
+        trunc_normal_(p, std, gen)
+        return
+    for part in p.view(-1).split(DRAW_CHUNK):
+        part.copy_(trunc_normal_(torch.empty(part.shape, dtype=torch.float32,
+                                             device=part.device), std, gen))

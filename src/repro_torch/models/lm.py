@@ -1,7 +1,7 @@
 """Decoder-only language model, serving half: init, cache, prefill, decode.
 
-The port of the JAX package's ``models/lm.py`` for the dense and MoE
-families:
+The port of the JAX package's ``models/lm.py`` for the dense, MoE, MLA
+and vision-language families:
 
     init(cfg, seed, device)                    -> params (an ``LM`` module)
     init_cache(cfg, batch, cache_len, device)  -> per-layer caches
@@ -9,7 +9,10 @@ families:
     decode_step(cfg, params, tokens, pos, cache) -> (logits, cache)
     compute_params(cfg, params)                -> params for the forward
 
-``batch`` is a dict {"tokens": (B, S) integer tensor}. The training
+``batch`` is a dict {"tokens": (B, S) integer tensor}, plus
+{"image_embeds": (B, N, frontend_dim)} for the vision configs: the
+frontend is a stub over precomputed patch embeddings, and the projector
+maps them to N image tokens that go before the text. The training
 forward (``lm.forward``, the loss) is ported with the training slice.
 
 ``init`` allocates every parameter on the requested device and fills it
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..backend.torch_backend import resolve_device
@@ -28,14 +32,31 @@ from ..configs.base import ArchConfig
 from .attention import Cache
 from .blocks import Block, apply_stack, init_stack_cache, layer_windows, \
     require_ported
-from .layers import Embedding, RMSNorm, init_params_
+from .layers import Embedding, RMSNorm, _param, init_params_
+
+
+class Projector(nn.Module):
+    """LLaVA's 2-layer projector from the vision hidden to d_model:
+    ``gelu(img @ w1) @ w2`` in the compute dtype, with the tanh-approximate
+    gelu (``jax.nn.gelu``'s default)."""
+
+    def __init__(self, frontend_dim: int, d_model: int, dtype, device=None):
+        super().__init__()
+        self.w1 = _param((frontend_dim, d_model), dtype, device)
+        self.w2 = _param((d_model, d_model), dtype, device)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(img @ self.w1.to(img.dtype), approximate="tanh")
+        return h @ self.w2.to(img.dtype)
 
 
 class LM(nn.Module):
     """Params, named as the reference's tree: ``embed.table``,
     ``layers.{i}.{attn_norm,attn,ffn_norm,mlp}.*`` (MoE:
     ``layers.{i}.moe.{router,w_gate,w_up,w_down,shared.*}`` in place of
-    ``mlp``), ``final_norm.scale`` and, untied, ``unembed.table``."""
+    ``mlp``; MLA: ``layers.{i}.attn.{w_dq,q_norm,w_uq,w_dkv,kv_norm,w_uk,
+    w_uv,wo}``), ``final_norm.scale``, untied ``unembed.table``, and for
+    the vision frontend ``projector.{w1,w2}``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -48,6 +69,9 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
         if not cfg.tie_embeddings:
             self.unembed = Embedding(cfg.vocab_size, cfg.d_model, dt, device)
+        if cfg.frontend == "vision":
+            self.projector = Projector(cfg.frontend_dim, cfg.d_model, dt,
+                                       device)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         table = self.embed if self.cfg.tie_embeddings else self.unembed
@@ -90,6 +114,17 @@ def compute_params(cfg: ArchConfig, params: LM) -> LM:
     return out
 
 
+def _embed_inputs(cfg: ArchConfig, params: LM, batch: Dict) -> torch.Tensor:
+    """The tokens' embeddings (B, S, d), with the projected image tokens
+    first where the batch carries ``image_embeds``."""
+    cdt = cfg.dtype("compute")
+    x = params.embed.embed(batch["tokens"], cdt)
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        img_tok = params.projector(batch["image_embeds"].to(cdt))
+        x = torch.cat([img_tok, x], dim=1)
+    return x
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                device=None) -> List[Cache]:
     return init_stack_cache(cfg, cfg.num_layers, batch, cache_len,
@@ -103,10 +138,11 @@ def prefill(
     cache: List[Cache],
     window_override: Optional[int] = None,
 ) -> Tuple[torch.Tensor, List[Cache]]:
-    """Run the prompt through the stack, filling the (empty) cache; the
-    attention goes through the flash kernel. Returns (last-position
-    logits (B, 1, V), cache)."""
-    x = params.embed.embed(batch["tokens"], cfg.dtype("compute"))
+    """Run the prompt (image tokens first, where given) through the stack,
+    filling the (empty) cache at positions 0..S-1; GQA attends through the
+    flash kernel, MLA over its latent cache. Returns (last-position logits
+    (B, 1, V), cache)."""
+    x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, cfg.num_layers, window_override)

@@ -6,9 +6,10 @@ CUDA ledger launching both of its kernels and deciding as the CPU run
 does; the online simulator's clean, chaos, recover, elastic and
 service paths on a CUDA ledger deciding as ``repro.sim`` on numpy or as
 the CPU run does, with the checkpoint's ledger still on the card; the
-reduced serving path (dense and MoE) launching both model kernels and
-answering as the CPU run does, and one full-width MoE layer routing as
-the CPU does. Skipped where there is no card; on one,
+reduced serving path (dense, MoE, MLA and vision) launching the model
+kernels and answering as the CPU run does, one full-width MoE layer
+routing as the CPU does, and one full-width MLA layer of each MLA config
+computing as the CPU does. Skipped where there is no card; on one,
 run ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
@@ -260,6 +261,10 @@ def _tol(dtype):
     # rows, single rows
     (16, 12288), (33, 5120), (7, 1536), (300, 1), (1, 3072), (1, 12288),
     (1, 50),
+    # MLA's q_norm / kv_norm on the prefill and decode rows: MiniCPM3
+    # (768, 256) and DeepSeek-V2 (1536, 512)
+    (4096, 768), (4096, 256), (2048, 1536), (2048, 512), (4, 768),
+    (4, 256), (4, 1536), (4, 512),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     gen = torch.Generator().manual_seed(N + d)
@@ -371,6 +376,19 @@ def test_flash_route_by_dtype(cuda, dtype, tensor_cores):
     assert ("flash_fwd_kernel_tc" in names[0]) == tensor_cores
 
 
+def test_flash_kernel_at_llava_prefill_matches_plain(cuda):
+    """bf16 at LLaVA-NeXT's prefill: 2880 image + 128 text tokens, 47
+    tiles of 64, 32 query heads over 8 kv heads of 128."""
+    gen = torch.Generator().manual_seed(3008)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).to(cuda)
+               for shape in ((4, 3008, 32, 128), (4, 3008, 8, 128),
+                             (4, 3008, 8, 128)))
+    got = flash_attention.flash_attention_cuda(q, k, v, True, 0)
+    want = flash_attention.flash_attention_torch(q, k, v, True, 0)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
 def test_flash_kernel_window_one_is_v(cuda):
     gen = torch.Generator().manual_seed(6)
     q, k, v = (torch.randn((1, 128, 1, 16), generator=gen).to(cuda)
@@ -417,6 +435,80 @@ def test_reduced_moe_serving_launches_both_kernels_and_matches_cpu(cuda):
                       cache_len=64).serve(reqs)
     for g, c in zip(gpu, cpu):
         np.testing.assert_array_equal(g.tokens, c.tokens)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b",
+                                  "llava-next-mistral-7b"])
+def test_reduced_mla_and_vision_serving_match_cpu(cuda, arch):
+    """Reduced MiniCPM3, DeepSeek-V2 and LLaVA-NeXT (float32, TF32 off)
+    through ``Model.prefill`` (LLaVA with image embeddings) and 7 decode
+    steps: exact launch counts (MLA: four norms a layer, no flash) and
+    the CPU's greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(0, cuda)
+    on_cpu = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (4, 16))).long()}
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+                np.float32))
+
+    def greedy(params, batch):
+        logits, state = model.prefill(params, batch, 48)
+        out = [logits[:, -1].argmax(-1, keepdim=True)]
+        for _ in range(7):
+            logits, state = model.decode(params, out[-1], state)
+            out.append(logits[:, -1].argmax(-1, keepdim=True))
+        return torch.cat(out, dim=1).cpu()
+
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    gpu = greedy(params, {k: v.to(cuda) for k, v in batch.items()})
+    mla = cfg.attention == "mla"
+    assert rmsnorm.LAUNCHES == 8 * ((4 if mla else 2) * cfg.num_layers + 1)
+    assert flash_attention.LAUNCHES == (0 if mla else cfg.num_layers)
+    _equal(gpu, greedy(on_cpu, batch))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-236b"])
+def test_full_width_mla_layer_matches_cpu(cuda, arch):
+    """One full-width MLA layer in float32 (TF32 off): the absorbed
+    branch over a latent cache (a 256-token prefill, then 2 decode steps)
+    and the expanded branch, each within 1e-4 of the CPU; the two norms
+    launch the rmsnorm kernel once each a forward."""
+    from repro_torch.models.attention import MLA, init_mla_cache
+    from repro_torch.models.layers import init_params_
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    layer = init_params_(MLA(cfg, cuda),
+                         torch.Generator(device=cuda).manual_seed(0))
+    on_cpu = MLA(cfg, "cpu")
+    on_cpu.load_state_dict(layer.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 258, cfg.d_model), generator=gen)
+    pos = torch.arange(258, dtype=torch.int32)
+    caches = {d: init_mla_cache(cfg, 2, 264, torch.float32, d)
+              for d in ("cuda", "cpu")}
+    rmsnorm.LAUNCHES = 0
+    with torch.no_grad():
+        for lo, hi in ((0, 256), (256, 257), (257, 258)):
+            y_gpu, _ = layer(x[:, lo:hi].to(cuda), pos[lo:hi].to(cuda),
+                             cache=caches["cuda"], prefill=lo == 0)
+            y_cpu, _ = on_cpu(x[:, lo:hi], pos[lo:hi], cache=caches["cpu"],
+                              prefill=lo == 0)
+            torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4,
+                                       atol=1e-4)
+        y_gpu, _ = layer(x[:, :64].to(cuda), pos[:64].to(cuda))
+        y_cpu, _ = on_cpu(x[:, :64], pos[:64])
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+    assert rmsnorm.LAUNCHES == 2 * 4
+    for name in ("c_kv", "k_rope"):
+        torch.testing.assert_close(caches["cuda"][name].cpu(),
+                                   caches["cpu"][name], rtol=1e-4, atol=1e-4)
 
 
 def _routing_gap(probs, k):

@@ -377,10 +377,8 @@ def test_compute_params_casts_weights_once_and_keeps_the_numbers():
     assert lm.compute_params(f32, same) is same
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
-                                  "mamba2-780m", "hymba-1.5b",
-                                  "seamless-m4t-medium",
-                                  "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "seamless-m4t-medium"])
 def test_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(get_config(arch, reduced=True)).init(0, "cpu")
