@@ -62,33 +62,52 @@ paths:
     2-layer float32 cut on the card and on the CPU, requiring identical
     greedy tokens and identical routing (top-k indices, keep masks) at
     every token whose routing gap exceeds 1e-6;
-  * the MLA and vision serving paths, each phase freeing the last model
-    first: MiniCPM3-4B at full width and depth (62 layers, d_model 2560,
-    40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64, vocab
-    73448, tied) with Gemma-7B's traffic through ``ServeEngine.serve``;
-    LLaVA-NeXT (Mistral-7B) at full width and depth (32 layers, 32 x 128
-    query heads over 8 kv heads, frontend_dim 1024) through
-    ``Model.prefill`` / ``decode``, two batches of 4 requests of 2880
-    random image embeddings + 128 tokens (S = 3008), 32 new tokens; and
-    DeepSeek-V2 at full width (MLA with kv_lora 512, 160 experts top-6 of
-    d_ff 1536 plus 2 shared, bf16 params) cut to 6 of its 60 layers, 8
-    prompts of 512 tokens, 16 new, max_batch 4; each with exact launch
-    counts (MLA: four norms a layer, no flash) and then its 2-layer
-    float32 cut on the card and on the CPU (identical greedy tokens,
-    logits within 1e-3; DeepSeek-V2 also identical routing above the 1e-6
-    gap; LLaVA with 256 image embeddings + 64 tokens).
+  * the MLA, vision, SSM, hybrid and enc-dec serving paths, each phase
+    freeing the last model first: MiniCPM3-4B at full width (d_model
+    2560, 40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64,
+    vocab 73448, tied) cut to 16 of its 62 layers, with Gemma-7B's
+    traffic through ``ServeEngine.serve``; LLaVA-NeXT (Mistral-7B) at
+    full width and depth (32 layers, 32 x 128 query heads over 8 kv
+    heads, frontend_dim 1024) through ``Model.prefill`` / ``decode``, two
+    batches of 4 requests of 2880 random image embeddings + 128 tokens
+    (S = 3008), 32 new tokens; DeepSeek-V2 at full width (MLA with
+    kv_lora 512, 160 experts top-6 of d_ff 1536 plus 2 shared, bf16
+    params) cut to 6 of its 60 layers, 8 prompts of 512 tokens, 16 new,
+    max_batch 4; Mamba2-780m at full width and depth (48 layers, d_model
+    1536, 48 SSD heads of 64, state 128, vocab 50280, tied) with Gemma's
+    traffic; Hymba-1.5B at full width and depth (32 layers, d_model 1600,
+    25 x 64 query heads over 5 kv heads, a sliding window of 1024 with
+    layers 0, 16 and 31 global, SSD state 16) serving 8 prompts of 2048
+    tokens, 32 new, max_batch 4; and SeamlessM4T-medium at full width and
+    depth (12 encoder + 12 decoder layers, d_model 1024, 16 x 64 heads,
+    vocab 256206) through ``Model.prefill`` / ``decode``, two batches of 4
+    requests of 1600 random frame embeddings + 128 target tokens, 32 new;
+    each with exact launch counts (MLA: four norms a layer, no flash; the
+    SSM: two, no flash; Hymba: five and one flash a layer a prefill;
+    SeamlessM4T: 25 an encode, 37 a decoder forward, 36 flash a prefill)
+    and then its 2-layer float32 cut on the card and on the CPU
+    (identical greedy tokens, logits within 1e-3, exact launches;
+    DeepSeek-V2 also identical routing above the 1e-6 gap; LLaVA with 256
+    image embeddings + 64 tokens; SeamlessM4T 2 + 2 layers with 256
+    frames + 64 tokens); the SSM phases also time the SSD alone at their
+    shapes for its share of the device's busy time.
 
 It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
 (4, 3072), and under ``phi35_moe`` at (4096, 4096) and (4, 4096); flash
-attention on both routes and, under ``phi35_moe``, at Phi-3.5-MoE's
+attention's bf16 route and, under ``phi35_moe``, at Phi-3.5-MoE's
 prefill (4, 1024, 32 heads, 8 kv heads, 128), under ``llava_next`` at
-LLaVA-NeXT's (4, 3008, 32, 8, 128); rmsnorm at MLA's ranks under
-``mla_norms``; each serving phase's launches; the offer kernels' launches
-on the sim path beside the static path's, and on each of the chaos,
-recover, elastic and service paths), and as its last line
+LLaVA-NeXT's (4, 3008, 32, 8, 128), under ``hymba_1_5b`` at Hymba's (4,
+2048, 25, 5, 64; window 1024 and global) and under
+``seamless_m4t_medium`` at SeamlessM4T's (encoder 1600 x 1600, cross 128
+x 1600, decoder 128 x 128); flash attention's float32 route as a kernel
+of its own (its launches: the float32 parity cuts'); rmsnorm at MLA's
+ranks under ``mla_norms`` and at the SSM, hybrid and enc-dec widths under
+``ssm_hybrid_encdec_norms``; each serving phase's launches; the offer
+kernels' launches on the sim path beside the static path's, and on each
+of the chaos, recover, elastic and service paths), and as its last line
 ``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
@@ -129,10 +148,11 @@ MOE_PARITY_POINT = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, requests=2,
 # largest router probabilities exceeds this
 ROUTING_GAP = 1e-6
 
-# MLA serving: MiniCPM3-4B at full width and depth (62 layers), Gemma's
-# traffic
-MLA_SERVE_POINT = dict(arch="minicpm3-4b", requests=8, prompt_len=1024,
-                       max_new=32, max_batch=4, seed=0)
+# MLA serving: MiniCPM3-4B at full width, 16 of its 62 layers (the whole
+# depth's phase took 83 s on an H100 80GB HBM3 at 700 W; its layers are
+# alike), Gemma's traffic
+MLA_SERVE_POINT = dict(arch="minicpm3-4b", layers=16, requests=8,
+                       prompt_len=1024, max_new=32, max_batch=4, seed=0)
 MLA_PARITY_POINT = dict(arch="minicpm3-4b", layers=2, requests=2,
                         prompt_len=128, max_new=8, seed=1)
 # vision serving: LLaVA-NeXT (Mistral-7B) at full width and depth, each
@@ -150,6 +170,25 @@ DSV2_SERVE_POINT = dict(arch="deepseek-v2-236b", layers=6, requests=8,
                         prompt_len=512, max_new=16, max_batch=4, seed=0)
 DSV2_PARITY_POINT = dict(arch="deepseek-v2-236b", layers=2, requests=2,
                          prompt_len=128, max_new=8, seed=1)
+# the SSM, hybrid and enc-dec serving runs, each at full width and depth:
+# Mamba2-780m with Gemma's traffic (a 1024-token prompt is 4 SSD chunks);
+# Hymba-1.5B with 2048-token prompts, so its 1024 window cuts the prompt
+# in 29 of 32 layers; SeamlessM4T-medium through Model.prefill / decode,
+# each request 1600 frame embeddings (the config's frontend_tokens) and a
+# 128-token target prompt
+SSM_SERVE_POINT = dict(arch="mamba2-780m", requests=8, prompt_len=1024,
+                       max_new=32, max_batch=4, seed=0)
+SSM_PARITY_POINT = dict(arch="mamba2-780m", layers=2, requests=2,
+                        prompt_len=128, max_new=8, seed=1)
+HYBRID_SERVE_POINT = dict(arch="hymba-1.5b", requests=8, prompt_len=2048,
+                          max_new=32, max_batch=4, seed=0)
+HYBRID_PARITY_POINT = dict(arch="hymba-1.5b", layers=2, requests=2,
+                           prompt_len=128, max_new=8, seed=1)
+ENCDEC_SERVE_POINT = dict(arch="seamless-m4t-medium", requests=8,
+                          prompt_len=128, frames=1600, max_new=32,
+                          max_batch=4, seed=0)
+ENCDEC_PARITY_POINT = dict(arch="seamless-m4t-medium", layers=2, requests=2,
+                           prompt_len=64, frames=256, max_new=8, seed=1)
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -849,14 +888,20 @@ def check_model_kernels(rmsnorm, flash) -> dict:
     max abs error per kernel."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
-    err = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    err = {"rmsnorm": 0.0, "flash_attention": 0.0,
+           "flash_attention_f32": 0.0}
     for N, d in [(4096, 3072), (4, 3072), (4096, 4096), (4, 4096),
                  (1024 * 64, 128), (96, 512), (16, 12288), (5, 50), (300, 1),
                  # MiniCPM3, DeepSeek-V2 (MLA norms, block norms) and
                  # LLaVA's prefill rows, then their decode rows
                  (4096, 768), (4096, 256), (4096, 2560), (2048, 1536),
                  (2048, 512), (2048, 5120), (12032, 4096), (4, 768),
-                 (4, 256), (4, 2560), (4, 1536), (4, 512), (4, 5120)]:
+                 (4, 256), (4, 2560), (4, 1536), (4, 512), (4, 5120),
+                 # Mamba-2 (d_model, the gated norm at d_inner), Hymba
+                 # (1600, 3200), SeamlessM4T (encoder and decoder rows),
+                 # then their decode rows
+                 (4096, 1536), (8192, 1600), (8192, 3200), (6400, 1024),
+                 (512, 1024), (4, 1600), (4, 3200), (4, 1024)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -870,6 +915,13 @@ def check_model_kernels(rmsnorm, flash) -> dict:
         (4, 1024, 1024, 16, 16, 256, True, 0, ("bf16", "f32")),
         (4, 1024, 1024, 32, 8, 128, True, 0, ("bf16",)),    # Phi-3.5-MoE
         (4, 3008, 3008, 32, 8, 128, True, 0, ("bf16",)),    # LLaVA-NeXT
+        # Hymba: sliding (window 1024) and global layers, 25:5 heads
+        (4, 2048, 2048, 25, 5, 64, True, 1024, ("bf16", "f32")),
+        (4, 2048, 2048, 25, 5, 64, True, 0, ("bf16",)),
+        # SeamlessM4T: encoder, prefill cross-attention, decoder self
+        (4, 1600, 1600, 16, 16, 64, False, 0, ("bf16", "f32")),
+        (4, 128, 1600, 16, 16, 64, False, 0, ("bf16", "f32")),
+        (4, 128, 128, 16, 16, 64, True, 0, ("bf16", "f32")),
         (2, 512, 512, 64, 8, 128, True, 0, ("bf16", "f32")),
         (1, 200, 200, 4, 2, 256, True, 0, ("bf16", "f32")),
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
@@ -888,7 +940,8 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                                      (B, S_k, KV, D)))
             tol = dict(rtol=2e-2, atol=2e-2) if name == "bf16" \
                 else dict(rtol=2e-5, atol=2e-5)
-            err["flash_attention"] = max(err["flash_attention"], _max_err(
+            which = "flash_attention" + ("_f32" if name == "f32" else "")
+            err[which] = max(err[which], _max_err(
                 flash.flash_attention_cuda(q, k, v, causal, window),
                 flash.flash_attention_torch(q, k, v, causal, window),
                 f"flash {(B, S_q, S_k, H, KV, D)} causal={causal} "
@@ -900,14 +953,14 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                for _ in range(3))
     if flash.vector_loads(256, q, k, v):
         raise AssertionError("offset float32 inputs took 16-byte loads")
-    err["flash_attention"] = max(err["flash_attention"], _max_err(
+    err["flash_attention_f32"] = max(err["flash_attention_f32"], _max_err(
         flash.flash_attention_cuda(q, k, v),
         flash.flash_attention_torch(q, k, v), "flash f32 unaligned",
         rtol=2e-5, atol=2e-5))
     # window 1: every query attends to itself alone, so out == v
     q, k, v = (torch.randn((1, 128, 2, 64), generator=gen).to(dev) * 3
                for _ in range(3))
-    err["flash_attention"] = max(err["flash_attention"], _max_err(
+    err["flash_attention_f32"] = max(err["flash_attention_f32"], _max_err(
         flash.flash_attention_cuda(q, k, v, True, 1), v, "flash window=1",
         rtol=1e-5, atol=1e-5))
     torch.cuda.synchronize()
@@ -923,39 +976,51 @@ def _requests(Request, vocab: int, n: int, length: int, max_new: int,
 
 
 @dataclasses.dataclass
-class VisionRequest:
+class FrontendRequest:
     request_id: int
     prompt: np.ndarray               # (S,) int32
-    image_embeds: torch.Tensor       # (N, frontend_dim) float32, host
+    embeds: torch.Tensor             # (N, frontend_dim) float32, host
     max_new_tokens: int = 16
 
 
-def _vision_requests(cfg, p: dict) -> list:
+def _frontend_key(p: dict):
+    """The batch key of the point's stub-frontend inputs ("image_embeds"
+    for ``images``, "frames" for ``frames``) and their count; (None, 0)
+    for a tokens-only point."""
+    for field, key in (("images", "image_embeds"), ("frames", "frames")):
+        if p.get(field):
+            return key, p[field]
+    return None, 0
+
+
+def _frontend_requests(cfg, p: dict) -> list:
     """``p["requests"]`` requests of ``p["images"]`` random image
-    embeddings (standing in for the stubbed frontend's patch embeddings)
-    and ``p["prompt_len"]`` random tokens, from ``p["seed"]``."""
+    embeddings or ``p["frames"]`` random frame embeddings (standing in
+    for the stubbed frontend's output) and ``p["prompt_len"]`` random
+    tokens, from ``p["seed"]``."""
+    _, n = _frontend_key(p)
     gen = torch.Generator().manual_seed(p["seed"])
     rng = np.random.default_rng(p["seed"])
-    return [VisionRequest(
+    return [FrontendRequest(
         i, rng.integers(0, cfg.vocab_size, p["prompt_len"]).astype(np.int32),
-        torch.randn((p["images"], cfg.frontend_dim), generator=gen),
+        torch.randn((n, cfg.frontend_dim), generator=gen),
         max_new_tokens=p["max_new"]) for i in range(p["requests"])]
 
 
-def _vision_server():
-    """``ServeEngine`` whose batches carry each request's image embeddings
-    into ``Model.prefill`` (the engine takes tokens only, in both
-    packages); greedy, with the engine's grouping, timing and copy of the
-    params."""
+def _frontend_server(key: str):
+    """``ServeEngine`` whose batches carry each request's stub-frontend
+    embeddings under ``key`` into ``Model.prefill`` (the engine takes
+    tokens only, in both packages); greedy, with the engine's grouping,
+    timing and copy of the params."""
     from repro_torch.serve import Completion, ServeEngine
 
-    class VisionServer(ServeEngine):
+    class FrontendServer(ServeEngine):
         def batch(self, requests: list) -> dict:
             return {"tokens": torch.from_numpy(np.stack(
                         [r.prompt for r in requests]).astype(np.int64)
                     ).to(self.device),
-                    "image_embeds": torch.stack(
-                        [r.image_embeds for r in requests]).to(self.device)}
+                    key: torch.stack(
+                        [r.embeds for r in requests]).to(self.device)}
 
         def run_batch(self, requests: list) -> list:
             self._sync()
@@ -978,16 +1043,24 @@ def _vision_server():
                                decode_ms=(t2 - t1) * 1e3)
                     for i, r in enumerate(requests)]
 
-    return VisionServer
+    return FrontendServer
+
+
+def _cache_len(p: dict) -> int:
+    """The KV cache a point's requests fill: image tokens (not frames),
+    the prompt, the new tokens, and 8 spare."""
+    return p.get("images", 0) + p["prompt_len"] + p["max_new"] + 8
 
 
 def point_config(p: dict):
     """The full-width config of ``p["arch"]``, cut to ``p["layers"]``
-    layers where the point says."""
+    layers where the point says (an enc-dec config's encoder too)."""
     from repro_torch.configs import get_config
     cfg = get_config(p["arch"])
     if "layers" in p:
         cfg = dataclasses.replace(cfg, num_layers=p["layers"])
+        if cfg.encoder_layers:
+            cfg = dataclasses.replace(cfg, encoder_layers=p["layers"])
     return cfg
 
 
@@ -1035,19 +1108,73 @@ def drop_counts(record: list, cfg) -> dict:
     return out
 
 
-def norms_per_layer(cfg) -> int:
-    """rmsnorm launches a layer makes a forward: the block's two, and
-    MLA's q_norm and kv_norm (or GQA's qk-norm)."""
-    return 2 + (2 if cfg.attention == "mla" or cfg.qk_norm else 0)
+def norms_per_layer(cfg, cross_attention: bool = False) -> int:
+    """rmsnorm launches one block makes a forward, from the blocks' code:
+    ``attn_norm`` and MLA's q_norm and kv_norm (or GQA's qk-norm) with
+    attention; the SSM's gated norm and, outside a hybrid, ``ssm_norm``;
+    a hybrid's two output norms; ``cross_norm`` (and the cross
+    attention's qk-norm) in an enc-dec decoder block; ``ffn_norm`` with
+    an MLP or experts."""
+    qk = 2 if cfg.attention == "mla" or cfg.qk_norm else 0
+    n = 0
+    if cfg.attention != "none":
+        n += 1 + qk
+    if cfg.ssm is not None:
+        n += 1 if cfg.hybrid else 2
+    if cfg.hybrid:
+        n += 2
+    if cross_attention:
+        n += 1 + (2 if cfg.qk_norm else 0)
+    if cfg.moe is not None or cfg.d_ff > 0:
+        n += 1
+    return n
+
+
+def expected_launches(cfg, batches: int, forwards: int) -> dict:
+    """Each kernel's launches over ``batches`` prefills and ``forwards``
+    forwards in all (the prefills included): per forward the blocks'
+    norms and the final norm; per prefill the enc-dec encoder's norms and
+    ``enc_norm``, and a flash call for each GQA self-attention layer (the
+    encoder's and the decoder's) and each cross-attention layer. A decode
+    step makes no flash call, MLA and the SSM none at all."""
+    L = cfg.num_layers
+    if cfg.encoder_layers:
+        E = cfg.encoder_layers
+        return {"rmsnorm": batches * (E * norms_per_layer(cfg) + 1)
+                + forwards * (L * norms_per_layer(cfg, True) + 1),
+                "flash_attention": batches * (E + 2 * L)}
+    return {"rmsnorm": forwards * (L * norms_per_layer(cfg) + 1),
+            "flash_attention": batches * L if cfg.attention == "gqa"
+            else 0}
+
+
+def norm_plan(cfg, p: dict) -> list:
+    """The order of one batch's rmsnorm launches by row count: (label,
+    launches, rows) runs. An enc-dec prefill norms the frames first; every
+    prefill then norms its prompt rows in every block; the final norm of
+    the prefill (on its last position) and every decode forward run on
+    ``max_batch`` rows."""
+    B = p["max_batch"]
+    per_forward = cfg.num_layers * norms_per_layer(
+        cfg, bool(cfg.encoder_layers)) + 1
+    plan = []
+    if cfg.encoder_layers:
+        plan.append(("encoder_shape",
+                     cfg.encoder_layers * norms_per_layer(cfg) + 1,
+                     B * p["frames"]))
+    plan.append(("prefill_shape", per_forward - 1,
+                 B * (p.get("images", 0) + p["prompt_len"])))
+    plan.append(("decode_shape", 1 + (p["max_new"] - 1) * per_forward, B))
+    return plan
 
 
 def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     """The point's model at full width (cut in depth where the point
-    says) on the card: through ServeEngine.serve, or for the vision
-    config through ``_vision_server()`` with each request's image
-    embeddings. Raises unless every completion, the prefill logits and
-    the launch counts are right. Returns the run's numbers; for MoE also
-    the dropped slots of the warm-up's forwards."""
+    says) on the card: through ServeEngine.serve, or for a stub-frontend
+    point (image or frame embeddings) through ``_frontend_server``.
+    Raises unless every completion, the prefill logits and the launch
+    counts are right. Returns the run's numbers; for MoE also the dropped
+    slots of the warm-up's forwards."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model
@@ -1055,17 +1182,17 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
 
     torch.cuda.empty_cache()        # the last phase's model is gone
     cfg = point_config(p)
-    images = p.get("images", 0)
-    cache_len = images + p["prompt_len"] + p["max_new"] + 8
+    key, _ = _frontend_key(p)
+    cache_len = _cache_len(p)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = build_model(cfg).init(p["seed"], "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    if images:
-        engine = _vision_server()(cfg, params, max_batch=p["max_batch"],
-                                  cache_len=cache_len)
-        reqs = _vision_requests(cfg, p)
+    if key:
+        engine = _frontend_server(key)(cfg, params, max_batch=p["max_batch"],
+                                       cache_len=cache_len)
+        reqs = _frontend_requests(cfg, p)
     else:
         engine = ServeEngine(cfg, params, max_batch=p["max_batch"],
                              cache_len=cache_len)
@@ -1080,7 +1207,7 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     routing: list = []
     hooks = record_routing(engine.params, cfg, routing) if cfg.moe else []
     first = reqs[:p["max_batch"]]
-    if images:
+    if key:
         batch = engine.batch(first)
     else:
         batch = {"tokens": torch.from_numpy(
@@ -1112,10 +1239,7 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
 
     batches = -(-p["requests"] // p["max_batch"])
     forwards = batches * p["max_new"]            # 1 prefill + decodes
-    gqa = cfg.attention == "gqa"
-    want = {"rmsnorm": forwards * (norms_per_layer(cfg) * cfg.num_layers
-                                   + 1),
-            "flash_attention": batches * cfg.num_layers if gqa else 0}
+    want = expected_launches(cfg, batches, forwards)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if sorted(c.request_id for c in done) != list(range(p["requests"])):
@@ -1131,8 +1255,7 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
         t1 = time.perf_counter()
         engine.serve(reqs)
         prof_wall = time.perf_counter() - t1
-    norm_split = rmsnorm_by_shape(prof, batches,
-                                  norms_per_layer(cfg) * cfg.num_layers,
+    norm_split = rmsnorm_by_shape(prof, batches, norm_plan(cfg, p),
                                   want["rmsnorm"])
     by_kernel, flash_calls = {}, {}
     for ev in prof.key_averages():
@@ -1143,11 +1266,12 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
         if "flash_fwd_kernel" in ev.key:
             flash_calls[ev.key] = flash_calls.get(ev.key, 0) + ev.count
     # every GQA prefill's attention ran on the tensor-core kernel; MLA
-    # runs none
-    if gqa and (len(flash_calls) != 1 or
-                "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
-                sum(flash_calls.values()) != want["flash_attention"]) or \
-            not gqa and flash_calls:
+    # and the SSM run none
+    if want["flash_attention"] and (
+            len(flash_calls) != 1 or
+            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
+            sum(flash_calls.values()) != want["flash_attention"]) or \
+            not want["flash_attention"] and flash_calls:
         raise AssertionError(f"profiled serving run's attention kernels "
                              f"{flash_calls}, want {want['flash_attention']}"
                              f" launches of flash_fwd_kernel_tc")
@@ -1168,30 +1292,86 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
                rmsnorm_split=norm_split,
                flash_s=sum(t for k, t in by_kernel.items()
                            if "flash_fwd_kernel" in k))
+    if cfg.ssm is not None:
+        out["ssd"] = ssd_share(cfg, p, batches, busy)
+    if cfg.sliding_window is not None:
+        from repro_torch.models.blocks import layer_windows
+        S = p.get("images", 0) + p["prompt_len"]
+        out["windowed_layers"] = sum(
+            w < S for w in layer_windows(cfg, cfg.num_layers))
     del engine
     torch.cuda.empty_cache()
     return out
 
 
-def rmsnorm_by_shape(prof, batches: int, prefill_norms: int,
-                     launches: int):
+def _busy_ms(fn, reps: int = 5) -> float:
+    """Device time per call of everything ``fn`` launches: the profiler's
+    kernel time over ``reps`` calls (after one unprofiled call); None
+    when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+             for ev in prof.key_averages())
+    return us / reps / 1e3 if us > 0 else None
+
+
+def ssd_share(cfg, p: dict, batches: int, busy_s: float) -> dict:
+    """The SSD's device time at the serving point's shapes: the chunked
+    SSD of one layer's prefill (max_batch x prompt, float32, as
+    ``SSM.forward`` hands it over) and one layer's recurrent decode step,
+    each timed alone on random inputs; times their calls in the served
+    run (a prefill and max_new - 1 steps a layer and batch) over the
+    run's profiled device busy time."""
+    from repro_torch.models import ssm
+    s, d = cfg.ssm, cfg.d_model
+    H, P, G, N = s.num_heads(d), s.head_dim, s.n_groups, s.state_dim
+    B, S, L = p["max_batch"], p["prompt_len"], cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, generator=gen, device="cuda")
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+
+    x, dt = rand(B, S, H, P), rand(B, S, H, lo=0.01, hi=0.5)
+    A = -rand(H, lo=0.1, hi=1.0)
+    Bm, Cm = rand(B, S, G, N), rand(B, S, G, N)
+    prefill_ms = _busy_ms(lambda: ssm.ssd_chunked(
+        x, dt, A, Bm, Cm, chunk=min(256, S)))
+    cache = {"state": rand(B, H, P, N)}
+    step_ms = _busy_ms(lambda: ssm._recurrent_step(
+        cache, x[:, :1], dt[:, :1], A, Bm[:, :1], Cm[:, :1]))
+    del x, dt, Bm, Cm, cache
+    if prefill_ms is None or step_ms is None:
+        return {"prefill_ms": prefill_ms, "step_ms": step_ms, "share": None}
+    total_s = batches * L * (prefill_ms + (p["max_new"] - 1) * step_ms) / 1e3
+    return {"prefill_ms": prefill_ms, "step_ms": step_ms,
+            "device_s": total_s, "share": total_s / busy_s}
+
+
+def rmsnorm_by_shape(prof, batches: int, plan: list, launches: int):
     """The profiled serving run's rmsnorm device time split by launch
     shape. The server fixes the order of the launches, and the exact
-    launch count holds it: each batch's prefill runs ``prefill_norms``
-    norms on its max_batch * prompt rows (the block norms at d_model and
-    MLA's at its ranks), then its final norm and every decode forward run
-    on max_batch rows. The launches, in device order, are split so; None
-    unless the profiler recorded all ``launches``."""
+    launch count holds it: each batch runs ``plan``'s (label, launches,
+    rows) runs in order (``norm_plan``). The launches, in device order,
+    are split so; None unless the profiler recorded all ``launches``."""
     evs = sorted((ev for ev in prof.events()
                   if "rmsnorm_kernel" in ev.name),
                  key=lambda ev: ev.time_range.start)
-    if len(evs) != launches:
+    if len(evs) != launches or \
+            sum(n for _, n, _ in plan) * batches != launches:
         return None
-    per_batch = launches // batches
-    out = {"prefill_shape": [0, 0.0], "decode_shape": [0, 0.0]}
+    labels = [label for label, n, _ in plan for _ in range(n)]
+    out = {label: [0, 0.0] for label, _, _ in plan}
     for i, ev in enumerate(evs):
-        side = out["prefill_shape" if i % per_batch < prefill_norms
-                   else "decode_shape"]
+        side = out[labels[i % len(labels)]]
         side[0] += 1
         side[1] += (ev.time_range.end - ev.time_range.start) / 1e6
     return {k: {"launches": n, "device_s": t, "us_per_launch": t / n * 1e6}
@@ -1201,12 +1381,15 @@ def rmsnorm_by_shape(prof, batches: int, prefill_norms: int,
 def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
     """The full-width model cut to ``p["layers"]`` layers in float32
     (params and compute), served on the card and on the CPU from the
-    same weights (the vision config with each request's image
-    embeddings): identical greedy tokens, last-position prefill logits
-    within rtol=atol 1e-3; for MoE, identical top-k indices and keep
-    masks in every layer and forward at every token whose routing gap
-    exceeds ``ROUTING_GAP``."""
-    from repro_torch.models import build_model, lm
+    same weights (a stub-frontend point with each request's image or
+    frame embeddings): identical greedy tokens, last-position prefill logits
+    within rtol=atol 1e-3; exact launch counts on the card (the float32
+    routes: flash on the CUDA cores); for MoE, identical top-k indices
+    and keep masks in every layer and forward at every token whose
+    routing gap exceeds ``ROUTING_GAP``."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
     torch.cuda.empty_cache()
@@ -1214,19 +1397,19 @@ def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
                               param_dtype="float32")
     model = build_model(cfg)
     gpu = model.init(p["seed"], "cuda")
-    cpu = lm.LM(cfg, "cpu")
+    cpu = type(gpu)(cfg, "cpu")
     cpu.load_state_dict(gpu.state_dict())
     routing = {"cuda": [], "cpu": []}
     if cfg.moe:
         for name, params in (("cuda", gpu), ("cpu", cpu)):
             record_routing(params, cfg, routing[name])
-    images = p.get("images", 0)
-    cache_len = images + p["prompt_len"] + p["max_new"] + 8
-    if images:
-        reqs = _vision_requests(cfg, p)
-        servers = {name: _vision_server()(cfg, params,
-                                          max_batch=p["requests"],
-                                          cache_len=cache_len)
+    key, _ = _frontend_key(p)
+    cache_len = _cache_len(p)
+    if key:
+        reqs = _frontend_requests(cfg, p)
+        servers = {name: _frontend_server(key)(cfg, params,
+                                               max_batch=p["requests"],
+                                               cache_len=cache_len)
                    for name, params in (("cuda", gpu), ("cpu", cpu))}
         batches = {name: srv.batch(reqs) for name, srv in servers.items()}
     else:
@@ -1238,6 +1421,8 @@ def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
         tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).long()
         batches = {"cuda": {"tokens": tokens.cuda()},
                    "cpu": {"tokens": tokens}}
+    rmsnorm.LAUNCHES = 0
+    flash.LAUNCHES = 0
     lg, _ = model.prefill(gpu, batches["cuda"], cache_len)
     lc, _ = model.prefill(cpu, batches["cpu"], cache_len)
     err = _max_err(lg.cpu(), lc, "parity prefill logits", rtol=1e-3,
@@ -1247,13 +1432,20 @@ def parity_cuda_cpu(p: dict = PARITY_POINT) -> dict:
         t0 = time.perf_counter()
         out[name] = server.serve(reqs)
         out[name + "_s"] = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "flash_attention": flash.LAUNCHES}
+    # the logits' prefill, then one served batch: a prefill and
+    # max_new - 1 decode steps
+    want = expected_launches(cfg, 2, 1 + p["max_new"])
+    if launches != want:
+        raise AssertionError(f"parity launch counts {launches} != {want}")
     for g, c in zip(out["cuda"], out["cpu"]):
         if not np.array_equal(g.tokens, c.tokens):
             raise AssertionError(f"request {g.request_id}: cuda tokens "
                                  f"{g.tokens} != cpu {c.tokens}")
     res = dict(logits_err=err, tokens=[c.tokens.tolist()
                                        for c in out["cuda"]],
-               cuda_s=out["cuda_s"], cpu_s=out["cpu_s"])
+               cuda_s=out["cuda_s"], cpu_s=out["cpu_s"], launches=launches)
     if cfg.moe:
         res["routing"] = same_routing(routing["cuda"], routing["cpu"], cfg)
     del gpu, cpu, servers, batches, routing, lg
@@ -1304,46 +1496,73 @@ def rmsnorm_numbers(rmsnorm, x, scale) -> dict:
     }
 
 
-def flash_numbers(flash, q, k, v) -> dict:
-    """The attention kernel's route for q's dtype at (B, S, H, D) causal
-    with k.shape[2] kv heads: times, bound, and the achieved TFLOP/s and
-    share of the bound on the kernel's device time."""
+def _sdpa_op(fn) -> str:
+    """The fused op SDPA's dispatcher picked for one call of ``fn`` (flash,
+    efficient, cuDNN or the math fallback): the ``aten::_scaled_dot_
+    product_*`` op in a CPU-side profile of the call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    ops = sorted({ev.key for ev in prof.key_averages()
+                  if ev.key.startswith("aten::_scaled_dot_product_")})
+    return ", ".join(ops) or "no aten::_scaled_dot_product_* op"
+
+
+def flash_numbers(flash, q, k, v, causal: bool = True,
+                  window: int = 0) -> dict:
+    """The attention kernel's route for q's dtype at q (B, S_q, H, D)
+    against k, v (B, S_k, KV, D) with the given masks: times, bound, the
+    achieved TFLOP/s and share of the bound on the kernel's device time,
+    and ``F.scaled_dot_product_attention`` on the same inputs (causal by
+    ``is_causal``; a window as an explicit boolean ``attn_mask``), with
+    the op SDPA's dispatcher took."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
-    pairs = int(flash.allowed(S, S, True, 0).sum())
-    ops = 4 * B * H * D * pairs
+    S_k, KV = k.shape[1], k.shape[2]
+    ok = flash.allowed(S, S_k, causal, window, q.device)
+    ops = 4 * B * H * D * int(ok.sum())
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q,k,v,o
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     bound = max(t_bytes, t_ops)
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    gqa = {"enable_gqa": True} if KV != H else {}
-    device_ms = _device_ms(lambda: flash.flash_attention_cuda(q, k, v),
-                           "flash_fwd_kernel", reps=10)
+    sdpa = {"enable_gqa": True} if KV != H else {}
+    if window:
+        sdpa["attn_mask"] = ok
+    else:
+        sdpa["is_causal"] = causal
+
+    def kernel():
+        return flash.flash_attention_cuda(q, k, v, causal, window)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa)
+
+    device_ms = _device_ms(kernel, "flash_fwd_kernel", reps=10)
     return {
-        "shape": [B, S, H, D], "kv_heads": KV,
+        "shape": [B, S, H, D], "kv_heads": KV, "keys": S_k,
+        "causal": causal, "window": window,
         "dtype": str(q.dtype).replace("torch.", ""),
-        "ms": _time_ms(lambda: flash.flash_attention_cuda(q, k, v),
-                       reps=20, warmup=3),
+        "ms": _time_ms(kernel, reps=20, warmup=3),
         "device_ms": device_ms,
-        "plain_ms": _time_ms(lambda: flash.flash_attention_torch(q, k, v),
-                             reps=10, warmup=2),
+        "plain_ms": _time_ms(lambda: flash.flash_attention_torch(
+            q, k, v, causal, window), reps=10, warmup=2),
         "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "tflops": ops / device_ms / 1e9 if device_ms else None,
         "bound_share": bound / device_ms if device_ms else None,
-        "library_ms": _time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, **gqa), reps=20, warmup=3),
+        "library_ms": _time_ms(library, reps=20, warmup=3),
+        "library_op": _sdpa_op(library),
     }
 
 
 def print_serving(label: str, p: dict, sv: dict) -> None:
-    images = p.get("images", 0)
+    key, n_embeds = _frontend_key(p)
+    what = {"image_embeds": "image embeddings", "frames": "frames"}
     steps = p["max_new"] - 1
     print(f"{label} ({p['arch']}, {sv['layers']} layers, {p['requests']} "
-          f"requests x " + (f"{images} image embeddings + " if images else "")
+          f"requests x " + (f"{n_embeds} {what[key]} + " if key else "")
           + f"{p['prompt_len']} prompt + {p['max_new']} new, "
           f"max_batch {p['max_batch']}, greedy): wall {sv['wall']:.4f} s, "
           f"{sv['tokens']} tokens, {sv['tok_per_s']:.2f} tok/s; per batch "
@@ -1359,13 +1578,24 @@ def print_serving(label: str, p: dict, sv: dict) -> None:
           f"top kernels by device time: " + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
     split = sv["rmsnorm_split"]
-    rows = {"prefill_shape": p["max_batch"] * (images + p["prompt_len"]),
+    rows = {"encoder_shape": p["max_batch"] * p.get("frames", 0),
+            "prefill_shape": p["max_batch"] * (p.get("images", 0)
+                                               + p["prompt_len"]),
             "decode_shape": p["max_batch"]}
     print(f"{label} rmsnorm device time by launch shape: " + (
         "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
                   f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
                   for k, v in split.items())
         if split else "not measured (the profiler lost launches)"))
+    if "ssd" in sv:
+        ssd = sv["ssd"]
+        print(f"{label} SSD alone at the point's shapes: chunked prefill "
+              f"{ssd['prefill_ms']} ms a layer, recurrent step "
+              f"{ssd['step_ms']} ms a layer (profiler device time); share "
+              f"of the profiled run's device busy time {ssd['share']}")
+    if "windowed_layers" in sv:
+        print(f"{label} the sliding window cuts the prompt in "
+              f"{sv['windowed_layers']} of {sv['layers']} layers")
     if sv["drops"]:
         print(f"{label} dropped (token, k) slots a forward (warm-up "
               "forwards, routed again from each layer's input): " + "; ".join(
@@ -1385,7 +1615,9 @@ def print_parity(label: str, p: dict, pa: dict) -> None:
                  f"{ro['tokens']} tokens, {ro['at_or_below_gap']} at or "
                  f"below the {ROUTING_GAP} gap, least gap "
                  f"{ro['least_gap']:.3e}; ")
-    print(line + f"serve cuda {pa['cuda_s']:.4f} s, cpu {pa['cpu_s']:.4f} s")
+    print(line + f"launches on the card (float32 routes) "
+          f"{pa['launches']}; serve cuda {pa['cuda_s']:.4f} s, cpu "
+          f"{pa['cpu_s']:.4f} s")
 
 
 def main() -> int:
@@ -1476,17 +1708,14 @@ def main() -> int:
 
     # 7. serving path: 2-layer float32 cut, cuda against cpu
     pa = parity_cuda_cpu()
-    print(f"parity (2-layer full-width f32, cuda vs cpu): identical greedy "
-          f"tokens {pa['tokens'][0]}..., prefill logits max abs err "
-          f"{pa['logits_err']:.3e}; serve cuda {pa['cuda_s']:.4f} s, cpu "
-          f"{pa['cpu_s']:.4f} s")
+    print_parity("parity", PARITY_POINT, pa)
 
     # 7b. MoE serving: Phi-3.5-MoE at full width, 8 layers, then its
     # 2-layer float32 cut on cuda and cpu with the routing compared
     moe_sv = serve_full_width(rmsnorm, flash, MOE_SERVE_POINT)
     print_serving("moe serving", MOE_SERVE_POINT, moe_sv)
-    print_parity("moe parity", MOE_PARITY_POINT,
-                 parity_cuda_cpu(MOE_PARITY_POINT))
+    moe_pa = parity_cuda_cpu(MOE_PARITY_POINT)
+    print_parity("moe parity", MOE_PARITY_POINT, moe_pa)
 
     # 8. times at the main paths' shapes
     gen = torch.Generator().manual_seed(1)
@@ -1514,7 +1743,20 @@ def main() -> int:
         one = torch.ones(d).cuda()
         rmla[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
         rmla[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
-    for f in (rnum, rdec, rmoe, rmoe_dec, *rmla.values()):
+    # the SSM, hybrid and enc-dec widths: Mamba-2's d_model and gated
+    # norm (d_inner) on 4 x 1024 prefill rows, Hymba's on 4 x 2048,
+    # SeamlessM4T's encoder (4 x 1600 frames) and decoder (4 x 128) rows,
+    # and each on the 4 decode rows
+    rnew = {}
+    # ((4096, 3072) and (4, 3072), Mamba-2's gated norm, are Gemma's above)
+    for N, d in ((4096, 1536), (8192, 1600), (8192, 3200), (6400, 1024),
+                 (512, 1024)):
+        x = (torch.randn((N, d), generator=gen) * 3).to(torch.bfloat16)
+        one = torch.ones(d).cuda()
+        rnew[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
+        if f"4x{d}" not in rnew:
+            rnew[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
+    for f in (rnum, rdec, rmoe, rmoe_dec, *rmla.values(), *rnew.values()):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -1539,35 +1781,66 @@ def main() -> int:
                              (4, 3008, 8, 128)))
     fvlm = flash_numbers(flash, q, k, v)       # LLaVA-NeXT prefill
     del q, k, v
+    # Hymba's prefill (25 query heads over 5 kv heads of 64; the sliding
+    # window of 1024 and a global layer) and SeamlessM4T's (the encoder
+    # over 1600 frames, the prefill's cross-attention from 128 target
+    # positions over them, the decoder's causal self-attention)
+    fnew = {}
+    for name, (B, S_q, S_k, H, KV, causal, window) in (
+            ("hymba_sliding", (4, 2048, 2048, 25, 5, True, 1024)),
+            ("hymba_global", (4, 2048, 2048, 25, 5, True, 0)),
+            ("seamless_encoder", (4, 1600, 1600, 16, 16, False, 0)),
+            ("seamless_cross", (4, 128, 1600, 16, 16, False, 0)),
+            ("seamless_decoder", (4, 128, 128, 16, 16, True, 0))):
+        q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                   .cuda() for shape in ((B, S_q, H, 64), (B, S_k, KV, 64),
+                                         (B, S_k, KV, 64)))
+        fnew[name] = flash_numbers(flash, q, k, v, causal, window)
+        if name == "hymba_sliding":
+            fnew["hymba_sliding_float32"] = flash_numbers(
+                flash, q.float(), k.float(), v.float(), causal, window)
+        del q, k, v
     for label, f in (("bf16, tensor cores", fnum),
                      ("float32, CUDA cores", fnum["float32"]),
                      ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"]),
                      ("bf16 at Phi-3.5-MoE's prefill", fmoe),
-                     ("bf16 at LLaVA-NeXT's prefill", fvlm)):
-        print(f"flash {f['shape']} kv_heads {f['kv_heads']} causal "
+                     ("bf16 at LLaVA-NeXT's prefill", fvlm),
+                     *((f"{f['dtype']}, {name}", f)
+                       for name, f in fnew.items())):
+        print(f"flash {f['shape']} kv_heads {f['kv_heads']} keys "
+              f"{f['keys']} causal {f['causal']} window {f['window']} "
               f"({label}): device {f['device_ms']} ms, events {f['ms']} ms,"
               f" {f['tflops']} TFLOP/s, {f['bound_share']} of the "
               f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
-              f"{f['plain_ms']} ms, library {f['library_ms']} ms")
-    # 8b. MLA, vision and MLA + MoE serving: MiniCPM3-4B and LLaVA-NeXT
-    # at full width and depth, DeepSeek-V2 at full width cut to 6 layers;
-    # each then its 2-layer float32 cut on cuda and cpu. After the kernel
-    # times: with these long profiled runs (MiniCPM3's alone is ~10^5
-    # kernels) before them, the profiler recorded no device time for the
-    # flash kernel's timing sessions
-    served = {}
+              f"{f['plain_ms']} ms, library {f['library_ms']} ms "
+              f"({f['library_op']})")
+    # 8b. MLA, vision, MLA + MoE, SSM, hybrid and enc-dec serving:
+    # MiniCPM3-4B cut to 16 layers, LLaVA-NeXT, DeepSeek-V2 cut to 6
+    # layers, Mamba2-780m, Hymba-1.5B and SeamlessM4T-medium at full
+    # width; each then its 2-layer float32 cut on cuda and cpu. After the
+    # kernel times: with these long profiled runs (~10^5 kernels each)
+    # before them, the profiler recorded no device time for the flash
+    # kernel's timing sessions
+    served, parities = {}, {}
     for key, label, point, parity in (
             ("minicpm3_4b", "mla serving", MLA_SERVE_POINT,
              MLA_PARITY_POINT),
             ("llava_next", "vision serving", VLM_SERVE_POINT,
              VLM_PARITY_POINT),
             ("deepseek_v2", "mla+moe serving", DSV2_SERVE_POINT,
-             DSV2_PARITY_POINT)):
+             DSV2_PARITY_POINT),
+            ("mamba2_780m", "ssm serving", SSM_SERVE_POINT,
+             SSM_PARITY_POINT),
+            ("hymba_1_5b", "hybrid serving", HYBRID_SERVE_POINT,
+             HYBRID_PARITY_POINT),
+            ("seamless_m4t_medium", "enc-dec serving", ENCDEC_SERVE_POINT,
+             ENCDEC_PARITY_POINT)):
         t0 = time.perf_counter()
         served[key] = serve_full_width(rmsnorm, flash, point)
         print_serving(label, point, served[key])
+        parities[key] = parity_cuda_cpu(parity)
         print_parity(label.replace("serving", "parity"), parity,
-                     parity_cuda_cpu(parity))
+                     parities[key])
         print(f"{label} phase wall {time.perf_counter() - t0:.2f} s")
 
     # 9. the online simulator on the card (the offer kernels inside the
@@ -1704,20 +1977,42 @@ def main() -> int:
          **{key: {"launches": sv_["launches"]["rmsnorm"],
                   "serving_split": sv_["rmsnorm_split"]}
             for key, sv_ in served.items()},
-         "mla_norms": rmla},
+         "mla_norms": rmla, "ssm_hybrid_encdec_norms": rnew},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
-         "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",
          "launches": sv["launches"]["flash_attention"],
-         "max_abs_err": merr["flash_attention"], **fnum,
+         "max_abs_err": merr["flash_attention"],
+         **{k: v for k, v in fnum.items() if k != "float32"},
          "phi35_moe": {"launches": moe_sv["launches"]["flash_attention"],
                        **fmoe},
          "llava_next": {"launches":
                         served["llava_next"]["launches"]["flash_attention"],
                         **fvlm},
+         "hymba_1_5b": {"launches":
+                        served["hymba_1_5b"]["launches"]["flash_attention"],
+                        "sliding": fnew["hymba_sliding"],
+                        "global": fnew["hymba_global"]},
+         "seamless_m4t_medium": {
+             "launches": served["seamless_m4t_medium"]["launches"][
+                 "flash_attention"],
+             "encoder": fnew["seamless_encoder"],
+             "cross": fnew["seamless_cross"],
+             "decoder": fnew["seamless_decoder"]},
          **{f"{key}_launches": served[key]["launches"]["flash_attention"]
-            for key in ("minicpm3_4b", "deepseek_v2")}},
+            for key in ("minicpm3_4b", "deepseek_v2", "mamba2_780m")}},
+        # the float32 route: the 2-layer float32 parity cuts run it on the
+        # card (launches: the Gemma-7B cut's, then each cut's)
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:94",
+         "launches": pa["launches"]["flash_attention"],
+         "max_abs_err": merr["flash_attention_f32"], **fnum["float32"],
+         "hymba_sliding": fnew["hymba_sliding_float32"],
+         "parity_launches": {
+             "phi35_moe": moe_pa["launches"]["flash_attention"],
+             **{key: pa_["launches"]["flash_attention"]
+                for key, pa_ in parities.items()}}},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -19,6 +19,7 @@ from .backend.torch_backend import resolve_device
 from .core.cluster import Cluster, Machine
 from .core.job import ElasticProfile, JobSpec, QualityCurve, SigmoidUtility
 from .core.pricing import PriceParams
+from .models.encdec import EncDec
 from .models.lm import LM
 
 
@@ -87,6 +88,25 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _unstack(tree: Mapping, stacks: Dict[str, int]) -> Dict[str, torch.Tensor]:
+    """The flattened tree with each array under a stacked prefix (``name``
+    -> its layer count) split along its leading L axis into
+    ``{prefix}.{i}.<rest>``."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, arr in _flatten(tree).items():
+        prefix = name.split(".", 1)[0]
+        if prefix in stacks and "." in name:
+            rest = name[len(prefix) + 1:]
+            if arr.shape[0] != stacks[prefix]:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
+                                 f"{stacks[prefix]} layers")
+            for i in range(stacks[prefix]):
+                state[f"{prefix}.{i}.{rest}"] = _tensor(arr[i])
+        else:
+            state[name] = _tensor(arr)
+    return state
+
+
 def lm_params_from_jax(cfg, tree: Mapping, device=None):
     """The port's ``LM`` params from the JAX package's ``lm.init`` tree
     (nested dicts of numpy arrays): ``embed/table``, ``unembed/table``,
@@ -95,25 +115,32 @@ def lm_params_from_jax(cfg, tree: Mapping, device=None):
     ``attn/{w_dq,q_norm/scale,w_uq,w_dkv,kv_norm/scale,w_uk,w_uv,wo}``,
     ``ffn_norm/scale``, ``mlp/{w_gate,w_up,w_down}``, or for MoE
     ``moe/{router,w_gate,w_up,w_down}`` with the expert axis second and
-    ``moe/shared/{w_gate,w_up,w_down}``), and for the vision frontend
-    ``projector/{w1,w2}``. The port's modules keep the tree's names and
-    per-layer layouts, so layer i of every stacked array becomes
-    ``layers.{i}.<name>``. Every array is copied into the param of that
-    name (the config's param dtype, bf16 included; the router float32);
-    missing or extra names raise."""
-    device = resolve_device(device)
-    flat = _flatten(tree)
-    state: Dict[str, torch.Tensor] = {}
-    for name, arr in flat.items():
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
-                                 f"{cfg.num_layers} layers")
-            for i in range(cfg.num_layers):
-                state[f"layers.{i}.{rest}"] = _tensor(arr[i])
-        else:
-            state[name] = _tensor(arr)
-    params = LM(cfg, device=device)
-    params.load_state_dict(state, strict=True)
+    ``moe/shared/{w_gate,w_up,w_down}``; for the SSM ``ssm_norm/scale``
+    and ``ssm/{conv_w,conv_b,A_log,D,dt_bias,norm/scale,w_out}`` with
+    ``w_in`` or ``w_z/w_x/w_B/w_C/w_dt``; a hybrid's attention and SSM
+    leaves and ``attn_out_norm/scale``, ``ssm_out_norm/scale``), and for
+    the vision frontend ``projector/{w1,w2}``. The port's modules keep
+    the tree's names and per-layer layouts, so layer i of every stacked
+    array becomes ``layers.{i}.<name>``. Every array is copied into the
+    param of that name (the config's param dtype, bf16 included; the
+    router and the SSM's ``A_log``, ``D``, ``dt_bias`` float32); missing
+    or extra names raise."""
+    params = LM(cfg, device=resolve_device(device))
+    params.load_state_dict(_unstack(tree, {"layers": cfg.num_layers}),
+                           strict=True)
+    return params
+
+
+def encdec_params_from_jax(cfg, tree: Mapping, device=None):
+    """The port's ``EncDec`` params from the JAX package's ``encdec.init``
+    tree: ``embed/table``, ``frontend_proj/w``, ``encoder/...`` stacked
+    on ``cfg.encoder_layers``, ``enc_norm/scale``, ``decoder/...``
+    stacked on ``cfg.num_layers`` (with ``cross_norm/scale`` and
+    ``cross_attn/{wq,wk,wv,wo}``), ``final_norm/scale`` and
+    ``unembed/table``; as ``lm_params_from_jax``, missing or extra names
+    raise."""
+    params = EncDec(cfg, device=resolve_device(device))
+    params.load_state_dict(_unstack(tree, {"encoder": cfg.encoder_layers,
+                                           "decoder": cfg.num_layers}),
+                           strict=True)
     return params

@@ -6,13 +6,15 @@ CUDA card by default.
 
 The flags and defaults of the JAX package's launcher (the reduced config,
 random weights from seed 0), plus ``--device`` (``cpu`` runs the kernels'
-plain versions). ``--arch`` takes the dense, MoE
-(``phi3.5-moe-42b-a6.6b``), MLA (``minicpm3-4b``, ``deepseek-v2-236b``)
-and vision (``llava-next-mistral-7b``) families; the others raise "later
-slice". The vision config is served text only, as the JAX package's
-``ServeEngine`` serves it: the engine takes tokens, so no image
-embeddings go in. Loading a checkpoint (``--ckpt-dir``) comes with the
-training slice.
+plain versions). ``--arch`` takes every decoder-only family: dense, MoE
+(``phi3.5-moe-42b-a6.6b``), MLA (``minicpm3-4b``, ``deepseek-v2-236b``),
+Mamba-2 (``mamba2-780m``), Hymba (``hymba-1.5b``) and vision
+(``llava-next-mistral-7b``). The vision config is served text only, as
+the JAX package's ``ServeEngine`` serves it: the engine takes tokens, so
+no image embeddings go in. The enc-dec config (``seamless-m4t-medium``)
+needs frames, which the engine does not take in either package: drive it
+through ``Model.prefill`` / ``decode`` with ``{"frames", "tokens"}``.
+Loading a checkpoint (``--ckpt-dir``) comes with the training slice.
 ``chip_smoke.py`` serves the full-width config.
 """
 import argparse
@@ -43,6 +45,10 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "checkpoint loading is ported with the training slice")
     cfg = get_config(args.arch, reduced=True)
+    if cfg.encoder_layers:
+        raise ValueError(f"{args.arch} is an enc-dec model: the engine "
+                         f"takes tokens only; serve it through "
+                         f"Model.prefill / decode with frames")
     model = build_model(cfg)
     params = model.init(0, args.device)
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,

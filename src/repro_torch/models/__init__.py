@@ -1,6 +1,10 @@
-"""The model zoo's dense decoder (GQA/MHA, qk-norm, RoPE, gated MLP) in
-torch, serving path: ``build_model(cfg)`` -> ``Model``. Attention and
-RMSNorm go through the hand-written CUDA kernels on the card."""
+"""The model zoo's serving path in torch: ``build_model(cfg)`` ->
+``Model`` over the decoder-only ``lm`` (dense, MoE, MLA, Mamba-2 SSD,
+Hymba hybrid, vision-language) and the ``encdec`` backbone
+(SeamlessM4T). Attention and RMSNorm go through the hand-written CUDA
+kernels on the card; the SSD (``ssm``) is plain torch, as the
+reference's is jnp."""
+from . import encdec, lm, ssm
 from .api import Model, build_model
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "encdec", "lm", "ssm"]

@@ -1,23 +1,32 @@
 """Attention: grouped-query attention (GQA/MQA, with qk-norm, RoPE,
 sliding window), multi-head latent attention (MLA: DeepSeek-V2,
-MiniCPM3), and their caches.
+MiniCPM3), cross-attention for enc-dec, and their caches.
 
-The port of the JAX package's ``models/attention.py`` for decoder
-self-attention. GQA takes one of two routes, chosen by the caller:
+The port of the JAX package's ``models/attention.py``. GQA takes one of
+two routes, chosen by the caller:
 
-  * **prefill** (``prefill=True``, from ``lm.prefill``): the prompt's own
-    q, k, v go through ``repro_torch.kernels.ops.flash_attention`` — the
-    CUDA flash kernel on the card, its plain version on the CPU — while k
-    and v are written into the cache. The reference instead attends over
-    the whole cache; the two agree exactly when the cache starts empty
-    (``pos == 0``) and holds the prompt (``S <= cache_len``): empty slots
-    have position -1 and add exp(-1e30 - m) = 0 to the softmax, and the
+  * **prefill** (``prefill=True``, from ``lm.prefill`` and the enc-dec
+    ``encode`` / ``prefill``): the fresh q, k, v go through
+    ``repro_torch.kernels.ops.flash_attention`` — the CUDA flash kernel on
+    the card, its plain version on the CPU. With a cache, k and v are
+    also written into it. The reference instead attends over the whole
+    cache; the two agree exactly when the cache starts empty (``pos ==
+    0``) and holds the prompt (``S <= cache_len``): empty slots have
+    position -1 and add exp(-1e30 - m) = 0 to the softmax, and the
     prompt's positions are 0..S-1, so the kernel's index masks are the
-    reference's position masks. Both conditions are checked.
+    reference's position masks. Both conditions are checked. Without a
+    cache (the encoder's non-causal self-attention; the decoder's
+    cross-attention over the encoder's frames, no RoPE) the caller
+    passes ``positions = arange(S_q)`` and ``kv_positions =
+    arange(S_k)``, as ``encdec`` does, and nothing is masked but by
+    ``causal`` and ``window``, so again the index masks are the position
+    masks.
   * **decode and no cache**: ``grouped_attention``, plain torch ops with
-    the reference's position masks, over the cache. The JAX package
-    computes this in jnp outside any Pallas kernel too; the kernel's
-    index-causal contract cannot express ring-buffer positions.
+    the reference's position masks, over the cache (or over the fresh k,
+    v: the decode's cross-attention re-projects the encoder's frames
+    each step, as the reference does). The JAX package computes this in
+    jnp outside any Pallas kernel too; the kernel's index-causal
+    contract cannot express ring-buffer positions.
 
 MLA follows the reference's two branches: with a cache (prefill and
 decode alike) the **absorbed** form, which folds ``w_uk`` into the query
@@ -101,7 +110,7 @@ def _project(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 # ================================================================= GQA
 class GQA(nn.Module):
-    """Causal self-attention. Params ``wq`` (d,H,hd), ``wk``/``wv``
+    """Self- or cross-attention. Params ``wq`` (d,H,hd), ``wk``/``wv``
     (d,KV,hd), ``wo`` (H,hd,d), and ``q_norm``/``k_norm`` (hd,) with
     qk-norm."""
 
@@ -126,46 +135,58 @@ class GQA(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,
         prefill: bool = False,
+        causal: bool = True,
+        kv_source: Optional[torch.Tensor] = None,   # cross-attn: (B, S_k, d)
+        kv_positions: Optional[torch.Tensor] = None,
+        use_rope: bool = True,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
         B, S, _ = x.shape
+        src = x if kv_source is None else kv_source
         q = _project(self.wq, x)
-        k = _project(self.wk, x)
-        v = _project(self.wv, x)
+        k = _project(self.wk, src)
+        v = _project(self.wv, src)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        kp = kv_positions if kv_positions is not None else positions
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, kp, cfg.rope_theta)
 
         if prefill:
-            out = self._prefill_attention(q, k, v, positions, window, cache)
+            out = self._prefill_attention(q, k, v, positions, window, cache,
+                                          causal)
         elif cache is not None:
             _write(cache, positions, k=k, v=v)
             out = grouped_attention(q, cache["k"], cache["v"], positions,
-                                    cache["positions"], window=window,
+                                    cache["positions"], causal=causal,
+                                    window=window,
                                     softcap=cfg.attn_logit_softcap)
         else:
-            out = grouped_attention(q, k, v, positions, positions,
+            out = grouped_attention(q, k, v, positions, kp, causal=causal,
                                     window=window,
                                     softcap=cfg.attn_logit_softcap)
         H, hd, d = self.wo.shape
         y = out.reshape(B, S, H * hd) @ self.wo.reshape(H * hd, d).to(x.dtype)
         return y, cache
 
-    def _prefill_attention(self, q, k, v, positions, window, cache):
-        if cache is None or cache["pos"] != 0:
-            raise ValueError("the prefill route needs an empty cache "
-                             "(pos == 0)")
-        if q.shape[1] > cache["k"].shape[1]:
-            raise ValueError(f"prompt of {q.shape[1]} tokens exceeds the "
-                             f"cache of {cache['k'].shape[1]}")
+    def _prefill_attention(self, q, k, v, positions, window, cache, causal):
+        if cache is not None:
+            if cache["pos"] != 0:
+                raise ValueError("the prefill route needs an empty cache "
+                                 "(pos == 0)")
+            if q.shape[1] > cache["k"].shape[1]:
+                raise ValueError(f"prompt of {q.shape[1]} tokens exceeds "
+                                 f"the cache of {cache['k'].shape[1]}")
         if self.cfg.attn_logit_softcap is not None:
             raise NotImplementedError("the flash route has no logit softcap")
         if window is not None and window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        _write(cache, positions, k=k, v=v)
-        return ops.flash_attention(q, k, v, causal=True, window=window or 0)
+        if cache is not None:
+            _write(cache, positions, k=k, v=v)
+        return ops.flash_attention(q, k, v, causal=causal,
+                                   window=window or 0)
 
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
@@ -242,6 +263,7 @@ class MLA(nn.Module):
         window: Optional[int] = None,
         cache: Optional[Cache] = None,
         prefill: bool = False,
+        causal: bool = True,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """With a cache, prefill (``prefill=True``) and decode alike take
         the absorbed branch over the whole cache, as the reference's
@@ -252,7 +274,8 @@ class MLA(nn.Module):
         q_nope, q_rope, c_kv, k_rope = self._qkv(x, positions)
         if cache is not None:
             _write(cache, positions, c_kv=c_kv, k_rope=k_rope)
-            out = self._absorbed(q_nope, q_rope, cache, positions, window)
+            out = self._absorbed(q_nope, q_rope, cache, positions, window,
+                                 causal)
         else:
             k_nope = torch.einsum("btl,lhn->bthn", c_kv,
                                   self.w_uk.to(x.dtype))
@@ -261,13 +284,13 @@ class MLA(nn.Module):
                 B, S, H, m.qk_rope_head_dim)], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)
             out = grouped_attention(q, k, v, positions, positions,
-                                    window=window,
+                                    causal=causal, window=window,
                                     scale=1.0 / math.sqrt(q.shape[-1]))
         Hv = H * m.v_head_dim
         y = out.reshape(B, S, Hv) @ self.wo.reshape(Hv, -1).to(x.dtype)
         return y, cache
 
-    def _absorbed(self, q_nope, q_rope, cache, positions, window):
+    def _absorbed(self, q_nope, q_rope, cache, positions, window, causal):
         """``w_uk`` folded into the query: scores over the latent cache
         (B, H, S, T) in float32, context in the latent space, then
         ``w_uv``; the reference's rounding points."""
@@ -280,7 +303,7 @@ class MLA(nn.Module):
         s = (torch.einsum("bshl,btl->bhst", q_abs.to(torch.float32), c_all)
              + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
                             r_all)) * scale
-        s = s + _bias(positions, cache["positions"], True, window)
+        s = s + _bias(positions, cache["positions"], causal, window)
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bhst,btl->bshl", p, c_all)
         return torch.einsum("bshl,lhv->bshv", ctx.to(dt), self.w_uv.to(dt))

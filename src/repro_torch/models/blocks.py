@@ -1,17 +1,22 @@
-"""Transformer block and layer stack for the attention decoder.
+"""Unified block and layer stack.
 
-The port of the JAX package's ``models/blocks.py`` for the dense, MoE,
-MLA and vision-language families: attn (GQA or MLA) -> mlp, or attn ->
-moe (+ shared experts); pre-norm, residual. The reference stacks every
+The port of the JAX package's ``models/blocks.py``. One block covers
+every family:
+    dense / vlm / audio : attn -> mlp (GQA or MLA)
+    moe                 : attn -> moe (+ shared experts)
+    ssm (mamba2)        : ssd mixer only
+    hybrid (hymba)      : parallel attn + ssd heads (mean-fused) -> mlp
+and, in the enc-dec decoder, cross-attention to the encoder's output
+after the self-attention. Pre-norm, residual. The reference stacks every
 layer's params on a leading L axis and scans one block over them; here
 the stack is an ``nn.ModuleList`` walked by a Python loop, and each
-layer's cache is its own dict (a list of them for the stack). Per-layer windows are a list of ints (or None).
-Each block returns its router aux loss and the stack sums them, as the
-reference's scan does.
+layer's cache is its own dict, ``{"attn": ..., "ssm": ...}`` as the
+family has them (a list of them for the stack). Per-layer windows are a
+list of ints (or None). Each block returns its router aux loss and the
+stack sums them, as the reference's scan does.
 
-SSM (Mamba-2), hybrid (Hymba) and cross-attention (enc-dec) blocks and
-the audio frontend are ported in later slices and raise
-``NotImplementedError`` here; the vision frontend is ``lm.Projector``.
+The frontends are stubs in both packages: vision is ``lm.Projector`` over
+patch embeddings, audio ``encdec.FrontendProj`` over frame embeddings.
 """
 from __future__ import annotations
 
@@ -21,47 +26,59 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .attention import Cache, init_attention_cache, make_attention
+from .attention import GQA, init_attention_cache, make_attention
 from .layers import MLP, RMSNorm
 from .moe import MoE
+from .ssm import SSM, init_ssm_cache
 
 BIG_WINDOW = 2**30  # "global" sentinel for per-layer windows
 #: a router aux loss: a float32 0-d tensor, or 0.0 where no layer has
 #: experts (so the dense stack launches nothing to sum it)
 Aux = Union[float, torch.Tensor]
+#: one layer's cache: {"attn": attention cache, "ssm": SSM cache}, the
+#: keys its family has
+LayerCache = dict
 
 
 def has_attention(cfg: ArchConfig) -> bool:
     return cfg.attention != "none"
 
 
+def has_ssm(cfg: ArchConfig) -> bool:
+    return cfg.ssm is not None
+
+
 def has_mlp(cfg: ArchConfig) -> bool:
     return cfg.d_ff > 0 and cfg.moe is None
 
 
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise for the block families the port does not have yet."""
-    missing = []
-    if cfg.ssm is not None or cfg.hybrid or not has_attention(cfg):
-        missing.append("SSM/hybrid")
-    if cfg.encoder_layers:
-        missing.append("encoder-decoder cross-attention")
-    if cfg.frontend not in (None, "vision"):
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(missing)} is ported in a later slice "
-            f"of repro_torch")
-
-
 # ---------------------------------------------------------------- one block
 class Block(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
+    """Params, named as the reference's ``init_block`` tree:
+    ``attn_norm``/``attn`` with attention, ``ssm_norm``/``ssm`` with an
+    SSM, ``attn_out_norm``/``ssm_out_norm`` in a hybrid (whose ``ssm_norm``
+    the reference creates and never reads: it is held so every leaf
+    carries), ``cross_norm``/``cross_attn`` with cross-attention, and
+    ``ffn_norm`` with ``moe`` or ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, device=None,
+                 cross_attention: bool = False):
         super().__init__()
-        require_ported(cfg)
+        self.hybrid = cfg.hybrid
         dt = cfg.dtype("param")
-        self.attn_norm = RMSNorm(cfg.d_model, dt, device)
-        self.attn = make_attention(cfg, device)
+        if has_attention(cfg):
+            self.attn_norm = RMSNorm(cfg.d_model, dt, device)
+            self.attn = make_attention(cfg, device)
+        if has_ssm(cfg):
+            self.ssm_norm = RMSNorm(cfg.d_model, dt, device)
+            self.ssm = SSM(cfg, device)
+        if cfg.hybrid:
+            # per-branch output norms for mean fusion (Hymba)
+            self.attn_out_norm = RMSNorm(cfg.d_model, dt, device)
+            self.ssm_out_norm = RMSNorm(cfg.d_model, dt, device)
+        if cross_attention:
+            self.cross_norm = RMSNorm(cfg.d_model, dt, device)
+            self.cross_attn = GQA(cfg, device)
         if cfg.moe is not None:
             self.ffn_norm = RMSNorm(cfg.d_model, dt, device)
             self.moe = MoE(cfg, device)
@@ -70,14 +87,41 @@ class Block(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                window: Optional[int], cache: Optional[Cache] = None,
-                prefill: bool = False
-                ) -> Tuple[torch.Tensor, Aux, Optional[Cache]]:
+                window: Optional[int], cache: Optional[LayerCache] = None,
+                prefill: bool = False, causal: bool = True,
+                encoder_out: Optional[torch.Tensor] = None,
+                encoder_positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Aux, Optional[LayerCache]]:
         """Returns (x, the layer's router aux loss, cache); the aux loss
-        is 0.0 in a block without experts."""
-        a_out, cache = self.attn(self.attn_norm(x), positions, window=window,
-                                 cache=cache, prefill=prefill)
-        x = x + a_out
+        is 0.0 in a block without experts. ``prefill`` routes the
+        self-attention and, with ``encoder_out``, the cross-attention
+        through the flash kernel (``attention`` module docstring)."""
+        a_cache = None if cache is None else cache.get("attn")
+        s_cache = None if cache is None else cache.get("ssm")
+        if self.hybrid:
+            h = self.attn_norm(x)
+            a_out, _ = self.attn(h, positions, window=window, cache=a_cache,
+                                 prefill=prefill, causal=causal)
+            s_out, _ = self.ssm(h, cache=s_cache)
+            x = x + 0.5 * (self.attn_out_norm(a_out)
+                           + self.ssm_out_norm(s_out))
+        else:
+            if hasattr(self, "attn"):
+                a_out, _ = self.attn(self.attn_norm(x), positions,
+                                     window=window, cache=a_cache,
+                                     prefill=prefill, causal=causal)
+                x = x + a_out
+            if hasattr(self, "ssm"):
+                s_out, _ = self.ssm(self.ssm_norm(x), cache=s_cache)
+                x = x + s_out
+
+        if encoder_out is not None and hasattr(self, "cross_attn"):
+            c_out, _ = self.cross_attn(
+                self.cross_norm(x), positions, window=None, prefill=prefill,
+                causal=False, kv_source=encoder_out,
+                kv_positions=encoder_positions, use_rope=False)
+            x = x + c_out
+
         aux: Aux = 0.0
         if hasattr(self, "moe"):
             m_out, aux = self.moe(self.ffn_norm(x))
@@ -106,9 +150,19 @@ def layer_windows(cfg: ArchConfig, num_layers: int,
     return w
 
 
+def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+                     device=None) -> LayerCache:
+    c: LayerCache = {}
+    if has_attention(cfg):
+        c["attn"] = init_attention_cache(cfg, batch, cache_len, dtype, device)
+    if has_ssm(cfg):
+        c["ssm"] = init_ssm_cache(cfg, batch, dtype, device)
+    return c
+
+
 def init_stack_cache(cfg: ArchConfig, num_layers: int, batch: int,
-                     cache_len: int, dtype, device=None) -> List[Cache]:
-    return [init_attention_cache(cfg, batch, cache_len, dtype, device)
+                     cache_len: int, dtype, device=None) -> List[LayerCache]:
+    return [init_block_cache(cfg, batch, cache_len, dtype, device)
             for _ in range(num_layers)]
 
 
@@ -117,15 +171,20 @@ def apply_stack(
     x: torch.Tensor,
     positions: torch.Tensor,
     windows: Optional[List[int]],
-    cache: Optional[List[Cache]] = None,
+    cache: Optional[List[LayerCache]] = None,
     prefill: bool = False,
-) -> Tuple[torch.Tensor, Aux, Optional[List[Cache]]]:
+    causal: bool = True,
+    encoder_out: Optional[torch.Tensor] = None,
+    encoder_positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Aux, Optional[List[LayerCache]]]:
     """Run the blocks in order over x. Returns (x, the layers' summed
     router aux loss, cache)."""
     aux: Aux = 0.0
     for i, block in enumerate(layers):
         x, a, _ = block(x, positions, None if windows is None else windows[i],
                         cache=None if cache is None else cache[i],
-                        prefill=prefill)
+                        prefill=prefill, causal=causal,
+                        encoder_out=encoder_out,
+                        encoder_positions=encoder_positions)
         aux = aux + a
     return x, aux, cache

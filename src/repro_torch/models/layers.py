@@ -117,12 +117,17 @@ def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     truncated normal x 0.02, every other weight truncated normal x
     1/sqrt(fan-in). The fan-in is the weight's first axis (the
     reference's ``dense_init(..., in_axis=0)``) unless its module's
-    ``fan_in_axis`` names another: the experts' ``in_axis=1``."""
+    ``fan_in_axis`` names another: the experts' ``in_axis=1``. A param
+    that its module's ``constant_init`` names is filled with that value
+    (the SSM's ``conv_b``, ``A_log``, ``D``, ``dt_bias``)."""
     with torch.no_grad():
         for mod in module.modules():
             axes = getattr(mod, "fan_in_axis", {})
+            consts = getattr(mod, "constant_init", {})
             for name, p in mod.named_parameters(recurse=False):
-                if name == "scale":
+                if name in consts:
+                    p.fill_(consts[name])
+                elif name == "scale":
                     p.fill_(1.0)
                 elif name == "table":
                     _fill(p, EMBED_STD, gen)

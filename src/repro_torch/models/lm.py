@@ -1,7 +1,7 @@
 """Decoder-only language model, serving half: init, cache, prefill, decode.
 
-The port of the JAX package's ``models/lm.py`` for the dense, MoE, MLA
-and vision-language families:
+The port of the JAX package's ``models/lm.py`` for every decoder-only
+family (dense, MoE, MLA, SSM, hybrid, vision-language):
 
     init(cfg, seed, device)                    -> params (an ``LM`` module)
     init_cache(cfg, batch, cache_len, device)  -> per-layer caches
@@ -29,9 +29,8 @@ from torch import nn
 
 from ..backend.torch_backend import resolve_device
 from ..configs.base import ArchConfig
-from .attention import Cache
-from .blocks import Block, apply_stack, init_stack_cache, layer_windows, \
-    require_ported
+from .blocks import Block, LayerCache, apply_stack, init_stack_cache, \
+    layer_windows
 from .layers import Embedding, RMSNorm, _param, init_params_
 
 
@@ -55,12 +54,13 @@ class LM(nn.Module):
     ``layers.{i}.{attn_norm,attn,ffn_norm,mlp}.*`` (MoE:
     ``layers.{i}.moe.{router,w_gate,w_up,w_down,shared.*}`` in place of
     ``mlp``; MLA: ``layers.{i}.attn.{w_dq,q_norm,w_uq,w_dkv,kv_norm,w_uk,
-    w_uv,wo}``), ``final_norm.scale``, untied ``unembed.table``, and for
-    the vision frontend ``projector.{w1,w2}``."""
+    w_uv,wo}``; SSM: ``layers.{i}.{ssm_norm,ssm}.*`` in place of the
+    attention, and a hybrid has both plus ``attn_out_norm`` and
+    ``ssm_out_norm``), ``final_norm.scale``, untied ``unembed.table``, and
+    for the vision frontend ``projector.{w1,w2}``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        require_ported(cfg)
         dt = cfg.dtype("param")
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, device)
@@ -90,25 +90,28 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
     return init_params_(LM(cfg, device), gen)
 
 
-#: params the forward reads as they are stored: norm scales (the norm
-#: reads them in float32) and the float32 router (the reference computes
-#: ``xg.astype(f32) @ router``; a cast router would route otherwise)
-UNCAST = ("scale", "router")
+#: params the forward reads as they are stored, by the leaf name after the
+#: last ".": norm scales (the norm reads them in float32), the float32
+#: router (the reference computes ``xg.astype(f32) @ router``; a cast
+#: router would route otherwise) and the SSM's float32 ``A_log``, ``D``
+#: and ``dt_bias`` (never cast in the reference)
+UNCAST = frozenset({"scale", "router", "A_log", "D", "dt_bias"})
 
 
-def compute_params(cfg: ArchConfig, params: LM) -> LM:
-    """``params`` with every matrix and embedding table cast once to the
-    compute dtype; the ``UNCAST`` params stay as they are. The forward
-    computes ``x @ w.to(x.dtype)`` either way, so the numbers are the
-    same; the copy saves a cast of every weight on every step. Returns
-    ``params`` itself when nothing needs a cast."""
+def compute_params(cfg: ArchConfig, params: nn.Module) -> nn.Module:
+    """``params`` (an ``LM`` or an ``encdec.EncDec``) with every matrix
+    and embedding table cast once to the compute dtype; the ``UNCAST``
+    params stay as they are. The forward computes ``x @ w.to(x.dtype)``
+    either way, so the numbers are the same; the copy saves a cast of
+    every weight on every step. Returns ``params`` itself when nothing
+    needs a cast."""
     cdt = cfg.dtype("compute")
     state = params.state_dict()
     cast = {name for name, t in state.items()
-            if not name.endswith(UNCAST) and t.dtype != cdt}
+            if name.rsplit(".", 1)[-1] not in UNCAST and t.dtype != cdt}
     if not cast:
         return params
-    out = LM(cfg, device="meta")
+    out = type(params)(cfg, device="meta")
     out.load_state_dict({name: t.to(cdt) if name in cast else t
                          for name, t in state.items()}, assign=True)
     return out
@@ -126,7 +129,7 @@ def _embed_inputs(cfg: ArchConfig, params: LM, batch: Dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               device=None) -> List[Cache]:
+               device=None) -> List[LayerCache]:
     return init_stack_cache(cfg, cfg.num_layers, batch, cache_len,
                             cfg.dtype("compute"), resolve_device(device))
 
@@ -135,13 +138,14 @@ def prefill(
     cfg: ArchConfig,
     params: LM,
     batch: Dict,
-    cache: List[Cache],
+    cache: List[LayerCache],
     window_override: Optional[int] = None,
-) -> Tuple[torch.Tensor, List[Cache]]:
+) -> Tuple[torch.Tensor, List[LayerCache]]:
     """Run the prompt (image tokens first, where given) through the stack,
     filling the (empty) cache at positions 0..S-1; GQA attends through the
-    flash kernel, MLA over its latent cache. Returns (last-position logits
-    (B, 1, V), cache)."""
+    flash kernel, MLA over its latent cache, the SSM through the chunked
+    SSD from a zero state. Returns (last-position logits (B, 1, V),
+    cache)."""
     x = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -157,9 +161,9 @@ def decode_step(
     params: LM,
     tokens: torch.Tensor,           # (B, 1)
     pos: int,                       # absolute position
-    cache: List[Cache],
+    cache: List[LayerCache],
     window_override: Optional[int] = None,
-) -> Tuple[torch.Tensor, List[Cache]]:
+) -> Tuple[torch.Tensor, List[LayerCache]]:
     """One decode step: (B, 1) tokens -> (B, 1, V) logits, cache updated
     in place."""
     x = params.embed.embed(tokens, cfg.dtype("compute"))

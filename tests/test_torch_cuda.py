@@ -6,11 +6,13 @@ CUDA ledger launching both of its kernels and deciding as the CPU run
 does; the online simulator's clean, chaos, recover, elastic and
 service paths on a CUDA ledger deciding as ``repro.sim`` on numpy or as
 the CPU run does, with the checkpoint's ledger still on the card; the
-reduced serving path (dense, MoE, MLA and vision) launching the model
-kernels and answering as the CPU run does, one full-width MoE layer
-routing as the CPU does, and one full-width MLA layer of each MLA config
-computing as the CPU does. Skipped where there is no card; on one,
-run ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``."""
+reduced serving path (dense, MoE, MLA, vision, Mamba-2, Hymba and
+SeamlessM4T) launching the model kernels and answering as the CPU run
+does, one full-width MoE layer routing as the CPU does, and one
+full-width MLA layer of each MLA config, one Hymba block and one
+SeamlessM4T decoder block computing as the CPU does. Skipped where there
+is no card; on one, run ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
 import copy
@@ -265,6 +267,10 @@ def _tol(dtype):
     # (768, 256) and DeepSeek-V2 (1536, 512)
     (4096, 768), (4096, 256), (2048, 1536), (2048, 512), (4, 768),
     (4, 256), (4, 1536), (4, 512),
+    # Mamba-2 (1536; the gated norm at 3072), Hymba (1600, 3200) and
+    # SeamlessM4T (1024) on their prefill and decode rows
+    (4096, 1536), (8192, 1600), (8192, 3200), (6400, 1024), (4, 1600),
+    (4, 3200), (4, 1024),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, N, d, dtype):
     gen = torch.Generator().manual_seed(N + d)
@@ -320,6 +326,9 @@ def test_rmsnorm_kernel_is_deterministic(cuda, N, d, dtype):
     (1, 64, 64, 2, 2, 20, True, 0),        # D no multiple of 8
     (1, 512, 512, 16, 16, 256, True, 0),   # Gemma-7B's heads
     (1, 130, 130, 2, 1, 50, True, 0),      # D no multiple of 4
+    (1, 2048, 2048, 25, 5, 64, True, 1024),  # Hymba's sliding window
+    (1, 128, 1600, 16, 16, 64, False, 0),  # SeamlessM4T's cross-attention
+    (1, 1600, 1600, 16, 16, 64, False, 0),  # and its encoder
 ])
 def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
                                     window, dtype):
@@ -509,6 +518,127 @@ def test_full_width_mla_layer_matches_cpu(cuda, arch):
     for name in ("c_kv", "k_rope"):
         torch.testing.assert_close(caches["cuda"][name].cpu(),
                                    caches["cpu"][name], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "seamless-m4t-medium"])
+def test_reduced_ssm_hybrid_and_encdec_serving_match_cpu(cuda, arch):
+    """Reduced Mamba-2, Hymba and SeamlessM4T (float32, TF32 off) through
+    ``Model.prefill`` (SeamlessM4T with frame embeddings) and 7 decode
+    steps: exact launch counts (Mamba-2: 2 norms a layer, no flash;
+    Hymba: 5 norms a layer and a flash call a layer a prefill;
+    SeamlessM4T: 2 a layer per encode and 3 a decoder layer a forward,
+    and flash for the encoder's, the decoder's and the cross-attention
+    layers a prefill) and the CPU's greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(0, cuda)
+    on_cpu = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (4, 16))).long()}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(4, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+                np.float32))
+
+    def greedy(params, batch):
+        logits, state = model.prefill(params, batch, 32)
+        out = [logits[:, -1].argmax(-1, keepdim=True)]
+        for _ in range(7):
+            logits, state = model.decode(params, out[-1], state)
+            out.append(logits[:, -1].argmax(-1, keepdim=True))
+        return torch.cat(out, dim=1).cpu()
+
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    gpu = greedy(params, {k: v.to(cuda) for k, v in batch.items()})
+    L, E = cfg.num_layers, cfg.encoder_layers
+    norms = {"mamba2-780m": 2, "hymba-1.5b": 5, "seamless-m4t-medium": 3}
+    want_norms = 8 * (norms[arch] * L + 1) + (2 * E + 1 if E else 0)
+    want_flash = {"mamba2-780m": 0, "hymba-1.5b": L,
+                  "seamless-m4t-medium": E + 2 * L}[arch]
+    assert rmsnorm.LAUNCHES == want_norms
+    assert flash_attention.LAUNCHES == want_flash
+    _equal(gpu, greedy(on_cpu, batch))
+
+
+def test_full_width_hymba_layer_matches_cpu(cuda):
+    """One full-width Hymba block in float32 (TF32 off): a 1280-token
+    prefill with the 1024 window (the flash route cuts it) and 2 decode
+    steps, then the same block as a global layer without a cache; each
+    within 1e-4 of the CPU, the SSM state too; 5 norms a forward and one
+    flash call a prefill."""
+    from repro_torch.models.blocks import Block, init_block_cache
+    from repro_torch.models.layers import init_params_
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("hymba-1.5b")
+    block = init_params_(Block(cfg, cuda),
+                         torch.Generator(device=cuda).manual_seed(0))
+    on_cpu = Block(cfg, "cpu")
+    on_cpu.load_state_dict(block.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 1282, cfg.d_model), generator=gen)
+    pos = torch.arange(1282, dtype=torch.int32)
+    caches = {d: init_block_cache(cfg, 1, 1288, torch.float32, d)
+              for d in ("cuda", "cpu")}
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    with torch.no_grad():
+        for lo, hi in ((0, 1280), (1280, 1281), (1281, 1282)):
+            y_gpu, _, _ = block(x[:, lo:hi].to(cuda), pos[lo:hi].to(cuda),
+                                1024, cache=caches["cuda"], prefill=lo == 0)
+            y_cpu, _, _ = on_cpu(x[:, lo:hi], pos[lo:hi], 1024,
+                                 cache=caches["cpu"], prefill=lo == 0)
+            torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4,
+                                       atol=1e-4)
+        y_gpu, _, _ = block(x[:, :256].to(cuda), pos[:256].to(cuda), None)
+        y_cpu, _, _ = on_cpu(x[:, :256], pos[:256], None)
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+    assert rmsnorm.LAUNCHES == 5 * 4
+    assert flash_attention.LAUNCHES == 1
+    torch.testing.assert_close(caches["cuda"]["ssm"]["state"].cpu(),
+                               caches["cpu"]["ssm"]["state"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_full_width_seamless_decoder_layer_matches_cpu(cuda):
+    """One full-width SeamlessM4T decoder block in float32 (TF32 off)
+    over 1600 random encoder frames: a 128-token prefill (self and
+    cross-attention through the flash kernel) and 2 decode steps
+    (``grouped_attention``), each within 1e-4 of the CPU; 3 norms a
+    forward, 2 flash calls in the prefill."""
+    from repro_torch.models.blocks import Block, init_block_cache
+    from repro_torch.models.layers import init_params_
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("seamless-m4t-medium")
+    block = init_params_(Block(cfg, cuda, cross_attention=True),
+                         torch.Generator(device=cuda).manual_seed(0))
+    on_cpu = Block(cfg, "cpu", cross_attention=True)
+    on_cpu.load_state_dict(block.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 130, cfg.d_model), generator=gen)
+    enc = torch.randn((2, 1600, cfg.d_model), generator=gen)
+    pos = torch.arange(130, dtype=torch.int32)
+    kpos = torch.arange(1600, dtype=torch.int32)
+    caches = {d: init_block_cache(cfg, 2, 136, torch.float32, d)
+              for d in ("cuda", "cpu")}
+    rmsnorm.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
+    with torch.no_grad():
+        for lo, hi in ((0, 128), (128, 129), (129, 130)):
+            y_gpu, _, _ = block(x[:, lo:hi].to(cuda), pos[lo:hi].to(cuda),
+                                None, cache=caches["cuda"], prefill=lo == 0,
+                                encoder_out=enc.to(cuda),
+                                encoder_positions=kpos.to(cuda))
+            y_cpu, _, _ = on_cpu(x[:, lo:hi], pos[lo:hi], None,
+                                 cache=caches["cpu"], prefill=lo == 0,
+                                 encoder_out=enc, encoder_positions=kpos)
+            torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4,
+                                       atol=1e-4)
+    assert rmsnorm.LAUNCHES == 3 * 3
+    assert flash_attention.LAUNCHES == 2
 
 
 def _routing_gap(probs, k):

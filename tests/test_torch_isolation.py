@@ -31,7 +31,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.ops",
                  "repro_torch.configs", "repro_torch.configs.gemma_7b",
                  "repro_torch.models.layers", "repro_torch.models.attention",
-                 "repro_torch.models.moe",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
+                 "repro_torch.models.encdec",
                  "repro_torch.models.blocks", "repro_torch.models.lm",
                  "repro_torch.models.api", "repro_torch.serve.engine",
                  "repro_torch.launch.serve", "repro_torch.convert",

@@ -259,7 +259,7 @@ def test_prefill_and_decode_match(arch):
         _close(tl, jl, 1e-4)
     assert ts["pos"] == int(js["pos"]) == 20
     for i, cache in enumerate(ts["cache"]):
-        _close(cache["c_kv"], js["cache"]["attn"]["c_kv"][i], 1e-4)
+        _close(cache["attn"]["c_kv"], js["cache"]["attn"]["c_kv"][i], 1e-4)
     if cfg.moe:
         L = cfg.num_layers
         assert len(drops) == 5 * L

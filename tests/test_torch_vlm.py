@@ -114,7 +114,7 @@ def test_prefill_and_decode_match(llava, images):
         tl, ts = model.decode(params, torch.from_numpy(nxt).long(), ts)
         _close(tl, jl, 1e-4)
     assert ts["pos"] == int(js["pos"]) == start + 4
-    positions = ts["cache"][0]["positions"]
+    positions = ts["cache"][0]["attn"]["positions"]
     assert positions[:start + 4].tolist() == list(range(start + 4))
 
 
