@@ -4,8 +4,8 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the five CUDA sources from ``src/repro_torch/kernels/csrc``
-with nvcc, one nvcc per source in parallel, and drives the port's two
+It builds the six CUDA sources from ``src/repro_torch/kernels/csrc``
+with nvcc, one nvcc per source in parallel, and drives the port's
 paths:
 
   * the PD-ORS offer path: both offer-path kernels and their host-level
@@ -53,6 +53,20 @@ paths:
     split into its prefill-shape and decode-shape launches; then a
     2-layer float32 cut of the full-width model served on the card and
     on the CPU from the same weights, requiring identical greedy tokens;
+  * the training path: rmsnorm's backward kernel against its plain
+    version on the card (the training shape (8192, 3072), decode rows,
+    d = 1, an odd d, d = 16384, narrow rows, unaligned pointers; twice
+    bit for bit), then Gemma-7B at full width cut to 4 of its 28 layers
+    (float32 params and AdamW moments, bfloat16 compute, remat "full")
+    trained 8 steps of SyntheticLM batches of 2 x 4096 tokens through
+    ``Trainer.run``: every loss finite and the last below the first, a
+    finite non-zero gradient on every parameter at step 0, exact rmsnorm
+    forward and backward launch counts (the remat recomputation
+    included), the profiled step 6's idle share, and the checkpoint the
+    trainer writes read back equal leaf for leaf; then its 2-layer
+    float32 cut trained 3 steps on the card and on the CPU from the same
+    weights (each loss to rel 1e-5, every step-0 gradient to 1e-4 of its
+    tensor's largest, launches exact);
   * the MoE serving path: Phi-3.5-MoE at full width (d_model 4096, 32 x
     128 query heads, 8 kv heads, 16 experts top-2 of d_ff 6400, vocab
     32064, capacity factor 1.25, groups of 512) cut to 8 of its 32
@@ -67,7 +81,7 @@ paths:
     2560, 40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64,
     vocab 73448, tied) cut to 16 of its 62 layers, with Gemma-7B's
     traffic through ``ServeEngine.serve``; LLaVA-NeXT (Mistral-7B) at
-    full width and depth (32 layers, 32 x 128 query heads over 8 kv
+    full width cut to 16 of its 32 layers (32 x 128 query heads over 8 kv
     heads, frontend_dim 1024) through ``Model.prefill`` / ``decode``, two
     batches of 4 requests of 2880 random image embeddings + 128 tokens
     (S = 3008), 32 new tokens; DeepSeek-V2 at full width (MLA with
@@ -75,11 +89,12 @@ paths:
     params) cut to 6 of its 60 layers, 8 prompts of 512 tokens, 16 new,
     max_batch 4; Mamba2-780m at full width and depth (48 layers, d_model
     1536, 48 SSD heads of 64, state 128, vocab 50280, tied) with Gemma's
-    traffic; Hymba-1.5B at full width and depth (32 layers, d_model 1600,
-    25 x 64 query heads over 5 kv heads, a sliding window of 1024 with
-    layers 0, 16 and 31 global, SSD state 16) serving 8 prompts of 2048
-    tokens, 32 new, max_batch 4; and SeamlessM4T-medium at full width and
-    depth (12 encoder + 12 decoder layers, d_model 1024, 16 x 64 heads,
+    traffic; Hymba-1.5B at full width cut to 16 of its 32 layers
+    (d_model 1600, 25 x 64 query heads over 5 kv heads, a sliding window
+    of 1024 with the first and last layers global, SSD state 16) serving
+    8 prompts of 2048 tokens, 32 new, max_batch 4; and SeamlessM4T-medium
+    at full width and depth (12 encoder + 12 decoder layers, d_model 1024,
+    16 x 64 heads,
     vocab 256206) through ``Model.prefill`` / ``decode``, two batches of 4
     requests of 1600 random frame embeddings + 128 target tokens, 32 new;
     each with exact launch counts (MLA: four norms a layer, no flash; the
@@ -96,7 +111,10 @@ It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
-(4, 3072), and under ``phi35_moe`` at (4096, 4096) and (4, 4096); flash
+(4, 3072), under ``gemma_7b_train`` the training run's launches and the
+training shape (8192, 3072), and under ``phi35_moe`` at (4096, 4096) and
+(4, 4096); rmsnorm's backward at the training shape, its launches the
+training run's; flash
 attention's bf16 route and, under ``phi35_moe``, at Phi-3.5-MoE's
 prefill (4, 1024, 32 heads, 8 kv heads, 128), under ``llava_next`` at
 LLaVA-NeXT's (4, 3008, 32, 8, 128), under ``hymba_1_5b`` at Hymba's (4,
@@ -155,10 +173,12 @@ MLA_SERVE_POINT = dict(arch="minicpm3-4b", layers=16, requests=8,
                        prompt_len=1024, max_new=32, max_batch=4, seed=0)
 MLA_PARITY_POINT = dict(arch="minicpm3-4b", layers=2, requests=2,
                         prompt_len=128, max_new=8, seed=1)
-# vision serving: LLaVA-NeXT (Mistral-7B) at full width and depth, each
-# request 2880 image embeddings (the config's frontend_tokens) + 128 text
-# tokens, through Model.prefill / decode (ServeEngine takes tokens only)
-VLM_SERVE_POINT = dict(arch="llava-next-mistral-7b", requests=8,
+# vision serving: LLaVA-NeXT (Mistral-7B) at full width, 16 of its 32
+# layers (the whole depth's phase took 49 s on an H100 80GB HBM3 at 700
+# W; its layers are alike), each request 2880 image embeddings (the
+# config's frontend_tokens) + 128 text tokens, through Model.prefill /
+# decode (ServeEngine takes tokens only)
+VLM_SERVE_POINT = dict(arch="llava-next-mistral-7b", layers=16, requests=8,
                        prompt_len=128, images=2880, max_new=32, max_batch=4,
                        seed=0)
 VLM_PARITY_POINT = dict(arch="llava-next-mistral-7b", layers=2, requests=2,
@@ -170,18 +190,20 @@ DSV2_SERVE_POINT = dict(arch="deepseek-v2-236b", layers=6, requests=8,
                         prompt_len=512, max_new=16, max_batch=4, seed=0)
 DSV2_PARITY_POINT = dict(arch="deepseek-v2-236b", layers=2, requests=2,
                          prompt_len=128, max_new=8, seed=1)
-# the SSM, hybrid and enc-dec serving runs, each at full width and depth:
-# Mamba2-780m with Gemma's traffic (a 1024-token prompt is 4 SSD chunks);
-# Hymba-1.5B with 2048-token prompts, so its 1024 window cuts the prompt
-# in 29 of 32 layers; SeamlessM4T-medium through Model.prefill / decode,
-# each request 1600 frame embeddings (the config's frontend_tokens) and a
-# 128-token target prompt
+# the SSM, hybrid and enc-dec serving runs, each at full width:
+# Mamba2-780m at full depth with Gemma's traffic (a 1024-token prompt is
+# 4 SSD chunks); Hymba-1.5B cut to 16 of its 32 layers (the whole depth's
+# phase took 66 s on an H100 80GB HBM3 at 700 W) with 2048-token prompts,
+# so its 1024 window cuts the prompt in all but its global first and
+# last layers; SeamlessM4T-medium at full depth through Model.prefill /
+# decode, each request 1600 frame embeddings (the config's
+# frontend_tokens) and a 128-token target prompt
 SSM_SERVE_POINT = dict(arch="mamba2-780m", requests=8, prompt_len=1024,
                        max_new=32, max_batch=4, seed=0)
 SSM_PARITY_POINT = dict(arch="mamba2-780m", layers=2, requests=2,
                         prompt_len=128, max_new=8, seed=1)
-HYBRID_SERVE_POINT = dict(arch="hymba-1.5b", requests=8, prompt_len=2048,
-                          max_new=32, max_batch=4, seed=0)
+HYBRID_SERVE_POINT = dict(arch="hymba-1.5b", layers=16, requests=8,
+                          prompt_len=2048, max_new=32, max_batch=4, seed=0)
 HYBRID_PARITY_POINT = dict(arch="hymba-1.5b", layers=2, requests=2,
                            prompt_len=128, max_new=8, seed=1)
 ENCDEC_SERVE_POINT = dict(arch="seamless-m4t-medium", requests=8,
@@ -189,6 +211,18 @@ ENCDEC_SERVE_POINT = dict(arch="seamless-m4t-medium", requests=8,
                           max_batch=4, seed=0)
 ENCDEC_PARITY_POINT = dict(arch="seamless-m4t-medium", layers=2, requests=2,
                            prompt_len=64, frames=256, max_new=8, seed=1)
+
+# training: Gemma-7B at full width cut to 4 of its 28 layers (full depth's
+# params, grads and two float32 moments, ~136 GB, do not fit one card),
+# SyntheticLM batches of 2 x 4096 (train_4k's length: 4 query chunks of
+# 1024), 8 steps of AdamW at lr 3e-4 through Trainer.run; step 6 is
+# profiled. Its parity cut: 2 layers, float32, 2 x 128 tokens, cuda vs
+# cpu, 3 steps with a 1-step warm-up (the reference's warm-up gives step 0
+# an lr of 0, so step 2's loss is the first after a full-lr update)
+TRAIN_POINT = dict(arch="gemma-7b", layers=4, batch=2, seq_len=4096,
+                   steps=8, lr=3e-4, seed=0, profile_step=6)
+TRAIN_PARITY_POINT = dict(arch="gemma-7b", layers=2, batch=2, seq_len=128,
+                          steps=3, warmup=1, lr=3e-4, seed=1)
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -1620,6 +1654,359 @@ def print_parity(label: str, p: dict, pa: dict) -> None:
           f"{pa['cpu_s']:.4f} s")
 
 
+# ------------------------------------------------------ training path
+def _bwd_err(rmsnorm, x, scale, dy, what: str) -> float:
+    """Hold the backward kernel to ``rmsnorm_bwd_torch`` on the same
+    inputs: float32 dx to 1e-5; bf16 dx to one bf16 ulp of its row's
+    largest |dx| plus 16 float32 ulps of its row's largest |r g| (``g - x
+    r^2 mean(g x)`` cancels: at d = 1, dx = r g eps / (x^2 + eps), far
+    below its terms, so two float32 computations differ by a few ulps of
+    the terms before the rounding); dscale to rtol 1e-5 (atol 1e-5 of its
+    largest, for columns that sum to near zero). Returns the max abs
+    error."""
+    dx, ds = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    want_dx, want_ds = rmsnorm.rmsnorm_bwd_torch(x, scale, dy)
+    if x.dtype == torch.bfloat16:
+        r = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + 1e-6)
+        terms = (r * dy.float() * scale.float()).abs().amax(-1, keepdim=True)
+        big = want_dx.float().abs().amax(-1, keepdim=True)
+        tol = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7) \
+            + 16 * torch.exp2(torch.floor(torch.log2(
+                terms.clamp_min(1e-30))) - 23)
+        gap = (dx.float() - want_dx.float()).abs()
+        if not bool((gap <= tol).all()):
+            raise AssertionError(f"{what}: dx beyond its tolerance, max gap "
+                                 f"{float(gap.max())}")
+        err = float(gap.max())
+    else:
+        err = _max_err(dx, want_dx, f"{what} dx", rtol=1e-5, atol=1e-5)
+    return max(err, _max_err(ds, want_ds, f"{what} dscale", rtol=1e-5,
+                             atol=1e-5 * float(want_ds.abs().max())))
+
+
+def check_rmsnorm_bwd(rmsnorm) -> float:
+    """The backward kernel against its plain version on the card at the
+    training shape (8192, 3072), its decode rows, d = 1, an odd d, the
+    widest row, MoE and narrow rows, both dtypes, and with x and dy off a
+    16-byte boundary; two launches bit for bit. Returns the max abs
+    error."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    err = 0.0
+    for N, d in [(8192, 3072), (4, 3072), (300, 1), (33, 77), (16, 16384),
+                 (1, 3072), (513, 256), (65536, 128), (4096, 4096)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
+            scale = (torch.randn((d,), generator=gen) + 1).to(dev)
+            dy = torch.randn((N, d), generator=gen).to(dt).to(dev)
+            err = max(err, _bwd_err(rmsnorm, x, scale, dy,
+                                    f"rmsnorm_bwd ({N}, {d}) {dt}"))
+            if (N, d) == (8192, 3072):
+                a = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+                b = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+                for u, v in zip(a, b):
+                    _equal(u.float(), v.float(), "rmsnorm_bwd twice")
+    N, d = 40, 3072
+    for dt in (torch.float32, torch.bfloat16):
+        x, dy = ((torch.randn((N * d + 1,), generator=gen) * 3).to(dt)
+                 .to(dev)[1:].view(N, d) for _ in range(2))
+        scale = (torch.randn((d,), generator=gen) + 1).to(dev)
+        err = max(err, _bwd_err(rmsnorm, x, scale, dy,
+                                f"rmsnorm_bwd unaligned {dt}"))
+    torch.cuda.synchronize()
+    return err
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """rmsnorm's forward and backward launches over ``steps`` train steps,
+    from the code: a step's forward runs every block's norms and the
+    final norm once; under ``remat`` "full" or "dots" the backward runs
+    each block's forward again (its norms too) before its gradient; the
+    backward kernel runs once for every norm of the forward."""
+    per_forward = cfg.num_layers * norms_per_layer(cfg, bool(
+        cfg.encoder_layers)) + 1
+    recompute = per_forward - 1 if cfg.remat != "none" else 0
+    return {"rmsnorm": steps * (per_forward + recompute),
+            "rmsnorm_bwd": steps * per_forward}
+
+
+def model_flops_per_step(cfg, params, tokens: int, seq_len: int) -> float:
+    """Model FLOPs of one train step (PaLM's count, no recomputation):
+    6 x the matrix params (the tied table once, as the unembedding) x
+    tokens, plus 12 L H hd S a token for attention's two products over
+    the whole S x S (``grouped_attention`` computes every score)."""
+    n_mm = sum(p.numel() for p in params.parameters() if p.dim() >= 2)
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim() \
+        * seq_len
+    return tokens * (6 * n_mm + attn)
+
+
+def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
+    """The point's model at full width (cut in depth) trained on the card
+    through ``Trainer.run``: every loss finite and the last below the
+    first, a finite non-zero gradient on every parameter at step 0, exact
+    rmsnorm forward and backward launches, and the checkpoint written at
+    the end read back by ``load_checkpoint`` equal leaf for leaf to the
+    final params. Returns the run's numbers: step times (CUDA events
+    between the ends of consecutive steps), the profiled step's idle
+    share and top kernels, memory."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs.base import InputShape
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = point_config(p)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"layers": cfg.num_layers}
+    events, prof = [], {}
+
+    def on_step(step, state, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if step == 0:
+            params = state["params"]
+            bad = [n for n, q in params.named_parameters()
+                   if q.grad is None or not bool(torch.isfinite(q.grad).all())
+                   or not bool((q.grad != 0).any())]
+            if bad:
+                raise AssertionError(f"step 0: no finite non-zero gradient "
+                                     f"on {bad}")
+            out["params"] = sum(q.numel() for q in params.parameters())
+            out["grads_checked"] = len(dict(params.named_parameters()))
+            out["state_gb"] = (sum(q.numel() * q.element_size()
+                                   for q in params.parameters())
+                               + sum(t.numel() * t.element_size()
+                                     for k in ("m", "v")
+                                     for t in state["opt"][k].values())) / 1e9
+            out["flops"] = model_flops_per_step(
+                cfg, params, p["batch"] * p["seq_len"], p["seq_len"])
+        if step == p["profile_step"] - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        if step == p["profile_step"]:
+            torch.cuda.synchronize()
+            prof["wall"] = time.perf_counter() - prof["t0"]
+            prof["p"].stop()
+
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    trainer = Trainer(cfg, InputShape("train_4k_cut", p["seq_len"],
+                                      p["batch"], "train"),
+                      TrainerConfig(steps=p["steps"], log_every=1,
+                                    checkpoint_dir=ckpt_dir, seed=p["seed"],
+                                    opt=AdamWConfig(lr=p["lr"])))
+    t0 = time.perf_counter()
+    hist = trainer.run(on_step=on_step)
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
+    want = expected_train_launches(cfg, p["steps"])
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != p["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["losses"] = losses
+    out["grad_norms"] = [h["grad_norm"] for h in hist]
+    out["launches"] = launches
+    out["step_ms"] = [events[i - 1].elapsed_time(events[i])
+                      for i in range(1, len(events))]
+    steady = float(np.median(out["step_ms"]))
+    out["tok_per_s"] = p["batch"] * p["seq_len"] / steady * 1e3
+    out["mfu"] = out["flops"] / (steady / 1e3) / BF16_OPS_PER_S
+    # busy: every kernel's and copy's device time; CUPTI's "Command Buffer
+    # Full" marks the host waiting on a full launch queue, not device work
+    by_kernel = {}
+    for ev in prof["p"].key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev / 1e6
+    out["queue_full_s"] = by_kernel.pop("Command Buffer Full", 0.0)
+    out["prof_wall"] = prof["wall"]
+    out["busy"] = sum(by_kernel.values())
+    out["idle"] = 1 - out["busy"] / prof["wall"] if by_kernel else None
+    out["top"] = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+
+    t0 = time.perf_counter()
+    tree, step = load_checkpoint(ckpt_dir, device="cpu")
+    got = _tree_leaves(tree)
+    want_leaves = _tree_leaves(convert.lm_params_to_jax(
+        cfg, trainer.final_state["params"]))
+    if step != p["steps"] or got.keys() != want_leaves.keys():
+        raise AssertionError(f"checkpoint step {step}, keys "
+                             f"{sorted(got)} != {sorted(want_leaves)}")
+    for name, leaf in want_leaves.items():
+        if not (got[name].dtype == leaf.dtype
+                and torch.equal(got[name], leaf)):
+            raise AssertionError(f"checkpoint leaf {name} differs")
+    out["checkpoint"] = dict(step=step, leaves=len(got),
+                             read_s=time.perf_counter() - t0)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del trainer, tree, got, want_leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_leaves(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_tree_leaves(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def train_parity(rmsnorm, p: dict = TRAIN_PARITY_POINT) -> dict:
+    """The full-width model cut to ``p["layers"]`` layers in float32
+    (params and compute; TF32 off), trained ``p["steps"]`` steps on the
+    card and on the CPU from the same weights and batches: each step's
+    loss to rel 1e-5, every gradient of step 0 within 1e-4 of its
+    tensor's largest CPU gradient, the card's launches exact. Params are
+    not compared after a step: AdamW's first update is +-lr wherever |g|
+    >> eps, so a near-zero gradient whose sign differs moves a param by 2
+    lr."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_source
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(point_config(p), compute_dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=p["lr"])
+    gpu = model.init(p["seed"], "cuda")
+    cpu = type(gpu)(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    source = make_source(cfg, InputShape("parity", p["seq_len"], p["batch"],
+                                         "train"), seed=p["seed"])
+    out = {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        state = {"params": params,
+                 "opt": adamw_init(dict(params.named_parameters()), opt)}
+        step_fn = make_train_step(model, opt, total_steps=p["steps"],
+                                  warmup=p["warmup"])
+        rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+        losses, t0 = [], time.perf_counter()
+        for step in range(p["steps"]):
+            batch = {k: torch.from_numpy(v).to(name)
+                     for k, v in source.batch(step).items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            if step == 0:
+                grads = {n: q.grad.cpu() for n, q in
+                         params.named_parameters()}
+        out[name] = dict(losses=losses, grads=grads,
+                         s=time.perf_counter() - t0,
+                         launches={"rmsnorm": rmsnorm.LAUNCHES,
+                                   "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD})
+    want = expected_train_launches(cfg, p["steps"])
+    if out["cuda"]["launches"] != want:
+        raise AssertionError(f"train parity launches "
+                             f"{out['cuda']['launches']} != {want}")
+    loss_err = 0.0
+    for a, b in zip(out["cuda"]["losses"], out["cpu"]["losses"]):
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"train parity losses {out['cuda']['losses']}"
+                                 f" != {out['cpu']['losses']}")
+        loss_err = max(loss_err, abs(a - b) / abs(b))
+    grad_err = 0.0
+    for n, g in out["cuda"]["grads"].items():
+        w = out["cpu"]["grads"][n]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not (scale > 0 and err <= 1e-4 * scale):
+            raise AssertionError(f"train parity gradient {n}: {err} of "
+                                 f"{scale}")
+        grad_err = max(grad_err, err / scale)
+    res = dict(losses=out["cuda"]["losses"], cpu_losses=out["cpu"]["losses"],
+               loss_rel_err=loss_err, grad_rel_err=grad_err,
+               grads=len(out["cuda"]["grads"]),
+               launches=out["cuda"]["launches"], cuda_s=out["cuda"]["s"],
+               cpu_s=out["cpu"]["s"])
+    del gpu, cpu, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def rmsnorm_bwd_numbers(rmsnorm, x, scale, dy) -> dict:
+    """The backward kernel's times at x (N, d): both passes by events
+    and by profiler (all device time of a call), the plain version, the
+    library's gradient (``torch.autograd.grad`` through ``F.rms_norm``,
+    its backward alone) and the bound: x, dy and dx once, the scale and
+    dscale once, over the card's memory rate."""
+    N, d = x.shape
+    nbytes = 3 * N * d * x.element_size() + 2 * d * 4
+    ops = 10 * N * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    xr = x.detach().clone().requires_grad_()
+    w = scale.to(x.dtype).requires_grad_()
+    y = torch.nn.functional.rms_norm(xr, (d,), w, 1e-6)
+
+    def kernel():
+        return rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+
+    return {
+        "shape": [N, d], "dtype": str(x.dtype).replace("torch.", ""),
+        "ms": _time_ms(kernel),
+        "device_ms": _busy_ms(kernel, reps=20),
+        "plain_ms": _time_ms(lambda: rmsnorm.rmsnorm_bwd_torch(x, scale, dy),
+                             reps=50),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": _time_ms(lambda: torch.autograd.grad(
+            y, (xr, w), dy, retain_graph=True), reps=50),
+    }
+
+
+def print_training(label: str, p: dict, tr: dict) -> None:
+    print(f"{label} ({p['arch']} full width, {tr['layers']} layers, "
+          f"{tr['params']} params, {p['batch']} x {p['seq_len']} tokens, "
+          f"{p['steps']} steps, AdamW lr {p['lr']}, remat full, bf16 "
+          f"compute, float32 params and moments): losses "
+          f"{[round(v, 5) for v in tr['losses']]}, grad norms "
+          f"{[round(v, 4) for v in tr['grad_norms']]}; every one of "
+          f"{tr['grads_checked']} params has a finite non-zero gradient at "
+          f"step 0; launches {tr['launches']}; wall {tr['wall']:.2f} s")
+    print(f"{label} step ms (CUDA events, steps 1-{p['steps'] - 1}; the "
+          f"step after the profiled one includes the profiler's stop) "
+          f"{[round(v, 3) for v in tr['step_ms']]}; median "
+          f"{float(np.median(tr['step_ms'])):.3f} ms = "
+          f"{tr['tok_per_s']:.1f} tokens/s; model FLOPs a step "
+          f"{tr['flops']:.4e} = {tr['mfu']:.4f} of 989 TFLOP/s; train state "
+          f"{tr['state_gb']:.2f} GB, peak {tr['peak_gb']:.2f} GB; "
+          f"checkpoint step {tr['checkpoint']['step']} read back equal "
+          f"({tr['checkpoint']['leaves']} leaves, "
+          f"{tr['checkpoint']['read_s']:.2f} s)")
+    idle = "not measured (the profiler recorded no device time)" \
+        if tr["idle"] is None else f"{tr['idle']:.4f}"
+    print(f"{label} step {p['profile_step']} profiled: device busy "
+          f"{tr['busy']:.4f} s of {tr['prof_wall']:.4f} s, idle share "
+          f"{idle}; the host waited on a full launch queue for "
+          f"{tr['queue_full_s']:.4f} s; top kernels by device time: "
+          + "; ".join(
+              f"{name[:60]} {t:.4f} s" for name, t in tr["top"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1702,6 +2089,12 @@ def main() -> int:
     print(f"model kernel checks: within tolerance of the plain versions "
           f"(max abs err {merr})")
 
+    # 5b. training path: rmsnorm's backward kernel against its plain
+    # version on the card
+    berr = check_rmsnorm_bwd(rmsnorm)
+    print(f"rmsnorm backward kernel checks: within tolerance of the plain "
+          f"version, bit for bit twice (max abs err {berr})")
+
     # 6. serving path: Gemma-7B at full width and depth on the card
     sv = serve_full_width(rmsnorm, flash)
     print_serving("serving", SERVE_POINT, sv)
@@ -1756,7 +2149,20 @@ def main() -> int:
         rnew[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
         if f"4x{d}" not in rnew:
             rnew[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
-    for f in (rnum, rdec, rmoe, rmoe_dec, *rmla.values(), *rnew.values()):
+    # the training shape: Gemma-7B's 2 x 4096 rows, forward and backward
+    x = (torch.randn((8192, 3072), generator=gen) * 3).to(torch.bfloat16)
+    dy = torch.randn((8192, 3072), generator=gen).to(torch.bfloat16)
+    rtrain = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
+    scale = (torch.randn((3072,), generator=gen) + 1).cuda()
+    bnum_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda())
+    del x, dy
+    print(f"rmsnorm_bwd {bnum_train['shape']} {bnum_train['dtype']}: device "
+          f"{bnum_train['device_ms']} ms (both passes), events "
+          f"{bnum_train['ms']} ms, {bnum_train['bound_ms']} ms "
+          f"{bnum_train['bound_by']} bound; plain {bnum_train['plain_ms']} "
+          f"ms, autograd through F.rms_norm {bnum_train['library_ms']} ms")
+    for f in (rnum, rdec, rtrain, rmoe, rmoe_dec, *rmla.values(),
+              *rnew.values()):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -1814,6 +2220,26 @@ def main() -> int:
               f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
               f"{f['plain_ms']} ms, library {f['library_ms']} ms "
               f"({f['library_op']})")
+    # 8a. training path: Gemma-7B at full width (4 layers) trained 8 steps
+    # through Trainer.run, then its 2-layer float32 cut on cuda and cpu;
+    # after the kernel times (with the profiled training step before
+    # them, the flash timing sessions recorded no device time on an H100
+    # 80GB HBM3)
+    t0 = time.perf_counter()
+    tr = train_full_width(rmsnorm)
+    print_training("training", TRAIN_POINT, tr)
+    tp = train_parity(rmsnorm)
+    print(f"training parity ({TRAIN_PARITY_POINT['layers']}-layer "
+          f"full-width f32, TF32 off, {TRAIN_PARITY_POINT['batch']} x "
+          f"{TRAIN_PARITY_POINT['seq_len']} tokens, "
+          f"{TRAIN_PARITY_POINT['steps']} steps, cuda vs cpu): losses "
+          f"{tp['losses']} (cpu {tp['cpu_losses']}), max rel err "
+          f"{tp['loss_rel_err']:.3e}; all {tp['grads']} step-0 gradients "
+          f"within {tp['grad_rel_err']:.3e} of their largest; launches on "
+          f"the card {tp['launches']}; cuda {tp['cuda_s']:.2f} s, cpu "
+          f"{tp['cpu_s']:.2f} s")
+    print(f"training phase wall {time.perf_counter() - t0:.2f} s")
+
     # 8b. MLA, vision, MLA + MoE, SSM, hybrid and enc-dec serving:
     # MiniCPM3-4B cut to 16 layers, LLaVA-NeXT, DeepSeek-V2 cut to 6
     # layers, Mamba2-780m, Hymba-1.5B and SeamlessM4T-medium at full
@@ -1977,7 +2403,17 @@ def main() -> int:
          **{key: {"launches": sv_["launches"]["rmsnorm"],
                   "serving_split": sv_["rmsnorm_split"]}
             for key, sv_ in served.items()},
-         "mla_norms": rmla, "ssm_hybrid_encdec_norms": rnew},
+         "mla_norms": rmla, "ssm_hybrid_encdec_norms": rnew,
+         "gemma_7b_train": {"launches": tr["launches"]["rmsnorm"],
+                            "parity_launches": tp["launches"]["rmsnorm"],
+                            "train_shape": rtrain}},
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:35",
+         "gradient_of": "src/repro/models/layers.py:35 (jax.grad)",
+         "launches": tr["launches"]["rmsnorm_bwd"],
+         "parity_launches": tp["launches"]["rmsnorm_bwd"],
+         "max_abs_err": berr, **bnum_train},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",

@@ -3,9 +3,11 @@
 The port imports nothing of the JAX package, so state crosses as plain
 Python and numpy data: ``dataclasses.asdict`` of a job, a list of
 per-machine capacity dicts plus the host ledger, a dict of price
-parameters, a model's param tree as nested dicts of numpy arrays. The
-tests use these to hand both packages the same jobs, the same mid-run
-ledger and the same weights.
+parameters, a model's param tree as nested dicts of numpy arrays (or
+tensors, as a checkpoint loads them), and back as nested dicts of CPU
+tensors (``*_params_to_jax``, what the trainer checkpoints). The tests
+use these to hand both packages the same jobs, the same mid-run ledger
+and the same weights.
 """
 from __future__ import annotations
 
@@ -68,20 +70,27 @@ def price_params_from_dict(d: Mapping) -> PriceParams:
     return PriceParams(U=dict(d["U"]), L=float(d["L"]), mu=float(d["mu"]))
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """Leaves by dotted name; torch tensors stay tensors, anything else
+    becomes a numpy array."""
+    out: Dict[str, object] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
         if isinstance(val, Mapping):
             out.update(_flatten(val, name + "."))
         else:
-            out[name] = np.asarray(val)
+            out[name] = val if isinstance(val, torch.Tensor) \
+                else np.asarray(val)
     return out
 
 
-def _tensor(arr: np.ndarray) -> torch.Tensor:
-    """A torch copy of ``arr``; numpy's bfloat16 (ml_dtypes, as
-    ``np.asarray`` of a bf16 jax array gives) crosses by its bits."""
+def _tensor(arr) -> torch.Tensor:
+    """``arr`` as a torch tensor (one already, as
+    ``checkpoint.load_checkpoint`` gives, stays as it is; a numpy array is
+    copied); numpy's bfloat16 (ml_dtypes, as ``np.asarray`` of a bf16 jax
+    array gives) crosses by its bits."""
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.array(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -105,6 +114,47 @@ def _unstack(tree: Mapping, stacks: Dict[str, int]) -> Dict[str, torch.Tensor]:
         else:
             state[name] = _tensor(arr)
     return state
+
+
+def _restack(params, stacks: Dict[str, int]) -> Dict:
+    """The inverse of ``_unstack``: ``params``' tensors as a nested dict
+    by the dotted names, each ``{prefix}.{i}.<rest>`` of a stacked prefix
+    gathered into ``<rest>`` under ``prefix`` with layer i on a leading
+    axis; detached CPU tensors, in the param dtype."""
+    state = {name: t.detach().cpu() for name, t in params.state_dict().items()}
+    flat: Dict[str, torch.Tensor] = {}
+    for prefix, layers in stacks.items():
+        rests = sorted({name.split(".", 2)[2] for name in state
+                        if name.startswith(prefix + ".")})
+        for rest in rests:
+            flat[f"{prefix}.{rest}"] = torch.stack(
+                [state.pop(f"{prefix}.{i}.{rest}") for i in range(layers)])
+    flat.update(state)
+    tree: Dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return tree
+
+
+def lm_params_to_jax(cfg, params) -> Dict:
+    """The JAX package's ``lm.init`` tree of the port's ``LM`` params, the
+    inverse of ``lm_params_from_jax``: nested dicts of CPU tensors (bf16
+    params stay bf16), every ``layers.{i}.<name>`` stacked on a leading L
+    axis as ``layers/<name>``. ``checkpoint.save_checkpoint`` writes it
+    in the reference's layout."""
+    return _restack(params, {"layers": cfg.num_layers})
+
+
+def encdec_params_to_jax(cfg, params) -> Dict:
+    """The JAX package's ``encdec.init`` tree of the port's ``EncDec``
+    params (``encoder`` and ``decoder`` stacked), the inverse of
+    ``encdec_params_from_jax``."""
+    return _restack(params, {"encoder": cfg.encoder_layers,
+                             "decoder": cfg.num_layers})
 
 
 def lm_params_from_jax(cfg, tree: Mapping, device=None):

@@ -7,7 +7,8 @@ torch version:
     minplus   — the Algorithm-3 min-plus DP sweep, fused into one launch
                 (replaces the Pallas ``_pallas_minplus_call`` step)
     rmsnorm   — fused RMSNorm, each row read once in 16-byte chunks
-                (replaces the Pallas ``_rmsnorm_kernel``)
+                (replaces the Pallas ``_rmsnorm_kernel``), and its
+                backward kernel under ``RMSNormFn`` for training
     flash_attention — forward online-softmax attention over the model's
                 (B, S, H, D) layout, grouped kv heads, causal and window
                 masks (replaces the Pallas ``_flash_kernel``)

@@ -10,7 +10,7 @@ The two float64 kernels of the offer path add ``--fmad=false``, which
 keeps nvcc from contracting a multiply and an add into one FMA: they are
 held bit-identical to float64 numpy references, which round after every
 operation. The model kernels (rmsnorm, both flash attention routes) are
-held to a tolerance and build without it. The library lands in ``build/``
+held to a tolerance and build without it (rmsnorm's backward too). The library lands in ``build/``
 next to this file (ignored by git), named by a hash of the source and
 its flags, so an edited source is rebuilt and an unchanged one is loaded.
 No PyTorch headers are included, which keeps a build to seconds.
@@ -40,6 +40,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
     "price_bundle": ("--fmad=false",),
     "minplus_sweep": ("--fmad=false",),
     "rmsnorm": (),
+    "rmsnorm_bwd": (),
     "flash_attention": (),
     "flash_attention_tc": (),
 }

@@ -2,7 +2,11 @@
 
 A wrapper given CPU tensors runs the kernel's plain torch version; given
 CUDA tensors it launches the hand-written kernel or raises. Nothing falls
-back from the card to the plain version.
+back from the card to the plain version. ``rmsnorm`` is differentiable on
+both: on the CPU autograd differentiates the plain version, on the card
+``rmsnorm.RMSNormFn`` runs the backward kernel (which raises in turn). The
+flash kernel has no backward: the training forward attends through
+``models.attention.grouped_attention``, as the reference's does.
 
     rmsnorm(x (..., d), scale (d,))                 -> (..., d)
     flash_attention(q (B,S_q,H,D), k, v (B,S_k,KV,D)) -> (B,S_q,H,D)
@@ -30,7 +34,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if x2.device.type == "cpu":
         out = _rn.rmsnorm_torch(x2, scale, eps)
     else:
-        out = _rn.rmsnorm_cuda(x2.contiguous(), scale, eps)
+        out = _rn.RMSNormFn.apply(x2.contiguous(), scale, eps)
     return out.reshape(x.shape)
 
 

@@ -13,9 +13,24 @@ dtype while it computes in bfloat16). Two implementations:
   * ``rmsnorm_torch`` — its plain torch version, the reference's
     (``reference_rmsnorm``) arithmetic op for op.
 
+and its gradient, ``(dx, dscale)`` for an upstream ``dy``:
+
+    dx = r * (g - x * r**2 * mean(g * x)),  g = dy * scale,
+    dscale = sum over rows of dy * x * r,    r = rsqrt(mean(x**2) + eps)
+
+in float32, dx rounded once into x's dtype and dscale into scale's:
+
+  * ``rmsnorm_bwd_cuda``  — the hand-written CUDA kernel
+    (``csrc/rmsnorm_bwd.cu``: the forward's row layout, dscale from
+    per-lane partial sums added in a fixed order, no atomics);
+  * ``rmsnorm_bwd_torch`` — its plain torch version, written out by hand
+    (what ``jax.grad`` of the reference's ``layers.rmsnorm`` computes).
+
+``RMSNormFn`` is the autograd function over the two kernels.
 ``repro_torch.kernels.ops.rmsnorm`` routes by the tensor's device: the
-plain version for a CPU tensor, the kernel for a CUDA tensor (or it
-raises). ``LAUNCHES`` counts kernel launches.
+plain version for a CPU tensor (autograd differentiates it), ``RMSNormFn``
+for a CUDA tensor (its kernels, or it raises). ``LAUNCHES`` and
+``LAUNCHES_BWD`` count the two kernels' launches.
 """
 from __future__ import annotations
 
@@ -29,6 +44,8 @@ from . import _build
 
 #: kernel launches made by ``rmsnorm_cuda`` in this process
 LAUNCHES = 0
+#: kernel launches made by ``rmsnorm_bwd_cuda`` in this process
+LAUNCHES_BWD = 0
 
 _ENTRIES = {torch.float32: "rmsnorm_f32_launch",
             torch.bfloat16: "rmsnorm_bf16_launch"}
@@ -37,12 +54,21 @@ _ARGTYPES = ([ctypes.c_void_p] * 3
                 ctypes.c_void_p] + [ctypes.c_int] * 4)
 #: C entry points resolved so far, by dtype
 _FNS: dict = {}
+_BWD_ENTRIES = {torch.float32: "rmsnorm_bwd_f32_launch",
+                torch.bfloat16: "rmsnorm_bwd_bf16_launch"}
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6
+                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p] + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong])
 
 #: the widest row the kernel takes, on every path
 MAX_D = 16384
 MAX_THREADS = 1024
 #: block size when a row takes at most a warp
 NARROW_THREADS = 256
+#: lanes (a row's threads, walking a slab of rows) the backward aims for:
+#: its dscale partial is at most this many rows of d float32
+BWD_LANES = 512
 #: chunks a thread may hold, by elements per chunk (the kernel's
 #: instantiations: 16-byte chunks of 8 bf16 or 4 float32, or single
 #: elements); each path covers rows up to ``MAX_D``
@@ -82,13 +108,18 @@ def rmsnorm_layout(d: int, dtype: torch.dtype, aligned: bool) -> Layout:
     return Layout(tpr, tpr, nch, width)
 
 
+def _math_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32, the reference's; float64 stays float64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rmsnorm_torch(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """Plain torch version: float32 math, output in x's dtype."""
-    x32 = x.to(torch.float32)
+    x32 = x.to(_math_dtype(x))
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+    return (y * scale.to(x32.dtype)).to(x.dtype)
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -135,3 +166,85 @@ def _entry(dtype: torch.dtype):
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return fn
+
+
+class Slabs(NamedTuple):
+    """How the backward splits N rows: each of ``lanes`` lanes takes
+    ``slab`` consecutive rows (the last lane the rest)."""
+    slab: int
+    lanes: int
+
+
+def rmsnorm_bwd_slabs(rows: int) -> Slabs:
+    """Rows a lane of the backward takes: the fewest that keep the lanes
+    at most ``BWD_LANES``. A function of N alone, so the order in which
+    dscale is summed is fixed for a shape."""
+    slab = max(1, -(-rows // BWD_LANES))
+    return Slabs(slab, -(-rows // slab))
+
+
+def rmsnorm_bwd_torch(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-6):
+    """Plain torch version of the gradient: float32 math, dx in x's dtype,
+    dscale (summed over every leading row) in scale's."""
+    x32 = x.to(_math_dtype(x))
+    dy32 = dy.to(x32.dtype)
+    r = torch.rsqrt(torch.mean(torch.square(x32), dim=-1, keepdim=True)
+                    + eps)
+    g = dy32 * scale.to(x32.dtype)
+    mean_gx = torch.mean(g * x32, dim=-1, keepdim=True)
+    dx = r * (g - x32 * (r * r) * mean_gx)
+    dscale = (dy32 * (x32 * r)).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-6):
+    """Launch the backward's two passes on the current stream; returns
+    (dx, dscale) without synchronizing."""
+    global LAUNCHES_BWD
+    _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} tensor of x's "
+                         f"shape {tuple(x.shape)} on {x.device}")
+    s32 = scale.to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    N, d = x.shape
+    slabs = rmsnorm_bwd_slabs(N)
+    partial = torch.empty((slabs.lanes, d), dtype=torch.float32,
+                          device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    xp, sp, gp, dp = x.data_ptr(), s32.data_ptr(), dy.data_ptr(), \
+        dx.data_ptr()
+    lay = rmsnorm_layout(d, x.dtype, (xp | sp | gp | dp) % 16 == 0)
+    status = _build.entry("rmsnorm_bwd", _BWD_ENTRIES[x.dtype],
+                          _BWD_ARGTYPES)(
+        xp, sp, gp, dp, partial.data_ptr(), dscale.data_ptr(), N, d, eps,
+        _build.stream_of(x), lay.threads, lay.tpr, lay.nch,
+        int(lay.width > 1), slabs.slab, slabs.lanes)
+    _build.check(status, "rmsnorm backward kernel")
+    LAUNCHES_BWD += 1
+    return dx, dscale.to(scale.dtype)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm of x (N, d) on the card with its gradient: the forward is
+    ``rmsnorm_cuda``, the backward ``rmsnorm_bwd_cuda``. ``scale`` is the
+    parameter itself, in its own dtype: the kernels read a float32 copy,
+    and the gradient comes back in scale's dtype to the parameter. Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward, and
+    each run counts in ``LAUNCHES``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None

@@ -14,7 +14,8 @@ the JAX package's ``ServeEngine`` serves it: the engine takes tokens, so
 no image embeddings go in. The enc-dec config (``seamless-m4t-medium``)
 needs frames, which the engine does not take in either package: drive it
 through ``Model.prefill`` / ``decode`` with ``{"frames", "tokens"}``.
-Loading a checkpoint (``--ckpt-dir``) comes with the training slice.
+``--ckpt-dir`` serves the latest checkpoint there (the reference's
+layout, written by either package's trainer) in place of random weights.
 ``chip_smoke.py`` serves the full-width config.
 """
 import argparse
@@ -22,6 +23,16 @@ import sys
 import time
 
 import numpy as np
+
+
+def load_params(cfg, ckpt_dir: str, device=None):
+    """The ``LM`` params of the latest checkpoint in ``ckpt_dir`` (a
+    reference tree) on ``device``, and its step."""
+    from ..checkpoint import load_checkpoint
+    from ..convert import lm_params_from_jax
+
+    tree, step = load_checkpoint(ckpt_dir, device=device)
+    return lm_params_from_jax(cfg, tree, device), step
 
 
 def main(argv=None) -> int:
@@ -41,16 +52,16 @@ def main(argv=None) -> int:
     from ..models import build_model
     from ..serve import Request, ServeEngine
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "checkpoint loading is ported with the training slice")
     cfg = get_config(args.arch, reduced=True)
     if cfg.encoder_layers:
         raise ValueError(f"{args.arch} is an enc-dec model: the engine "
                          f"takes tokens only; serve it through "
                          f"Model.prefill / decode with frames")
-    model = build_model(cfg)
-    params = model.init(0, args.device)
+    if args.ckpt_dir:
+        params, step = load_params(cfg, args.ckpt_dir, args.device)
+        print(f"restored checkpoint step {step}")
+    else:
+        params = build_model(cfg).init(0, args.device)
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,
                          cache_len=args.prompt_len + args.max_new + 8)
     del params          # the engine keeps what the forward reads

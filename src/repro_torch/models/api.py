@@ -1,4 +1,4 @@
-"""Unified model facade for serving.
+"""Unified model facade for training and serving.
 
 The port of the JAX package's ``models/api.py``. ``Model`` wraps the
 decoder-only LM and the enc-dec (SeamlessM4T) backbone behind one
@@ -6,18 +6,19 @@ interface:
 
     model = build_model(cfg)
     params = model.init(seed, device)            # an LM or EncDec module
+    loss, metrics = model.train_loss(params, batch)
     logits, state = model.prefill(params, batch, cache_len)
     logits, state = model.decode(params, tokens, state)
 
 ``batch`` is {"tokens"} plus, for the vision configs, {"image_embeds"}
-and, for the enc-dec config, {"frames"} (B, S_src, frontend_dim).
+and, for the enc-dec config, {"frames"} (B, S_src, frontend_dim); a
+training batch adds {"labels"}.
 ``state`` is {"cache": per-layer caches, "pos": host int} (enc-dec also
 {"enc": the encoder's output}), where ``pos`` counts the image tokens
 but not the frames; ``decode`` updates the caches in place. An
 attention-free config (Mamba-2) keeps no KV cache, so its prompt is not
-held to ``cache_len``. The training loss (``train_loss``) and the
-dry-run spec helpers (``input_specs``, ``serve_state_specs``,
-``concrete_batch``) come with later slices.
+held to ``cache_len``. The dry-run spec helpers (``input_specs``,
+``serve_state_specs``, ``concrete_batch``) come with a later slice.
 """
 from __future__ import annotations
 
@@ -43,10 +44,12 @@ class Model:
                                                             device)
 
     # ---------------- train ----------------
-    def train_loss(self, params: nn.Module, batch: Dict):
-        raise NotImplementedError(
-            f"{self.cfg.arch_id}: the training loss is ported in a later "
-            f"slice of repro_torch")
+    def train_loss(self, params: nn.Module,
+                   batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """(loss, {"ce", "aux", "tokens"}) of ``lm.forward`` or
+        ``encdec.forward``, differentiable on the card and on the CPU."""
+        fwd = encdec.forward if self.is_encdec else lm.forward
+        return fwd(self.cfg, params, batch)
 
     # ---------------- serve ----------------
     def init_serve_state(self, batch_size: int, cache_len: int,

@@ -24,9 +24,10 @@ two routes, chosen by the caller:
   * **decode and no cache**: ``grouped_attention``, plain torch ops with
     the reference's position masks, over the cache (or over the fresh k,
     v: the decode's cross-attention re-projects the encoder's frames
-    each step, as the reference does). The JAX package computes this in
-    jnp outside any Pallas kernel too; the kernel's index-causal
-    contract cannot express ring-buffer positions.
+    each step, as the reference does; and the training forward, whose
+    autograd the flash kernel, a forward only, could not carry). The JAX
+    package computes this in jnp outside any Pallas kernel too; the
+    kernel's index-causal contract cannot express ring-buffer positions.
 
 MLA follows the reference's two branches: with a cache (prefill and
 decode alike) the **absorbed** form, which folds ``w_uk`` into the query
@@ -83,22 +84,38 @@ def grouped_attention(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
+    q_chunk: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Grouped-query attention with position masks -> (B, S_q, H, Dv).
-
-    The reference's chunked softmax in one piece: the chunking there only
-    bounds memory, and this version serves decode (S_q = 1)."""
+    """Chunked-softmax grouped-query attention with position masks ->
+    (B, S_q, H, Dv), the reference's: queries in chunks of ``q_chunk``
+    (S_q must then be a multiple of it), each chunk's float32 scores over
+    every key. Each query row's softmax is over all keys either way, so
+    the chunks change no value; they bound the forward's peak to one
+    chunk's (B, KV, G, q_chunk, S_k) scores. Under autograd each chunk's
+    probabilities are saved for the backward, the same total as in one
+    piece; ``torch.utils.checkpoint`` (``cfg.remat``) drops them."""
     B, S_q, H, D = q.shape
     KV = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qg = q.reshape(B, S_q, KV, H // KV, D).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) * scale
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    s = s + _bias(q_pos, k_pos, causal, window)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    qg = q.reshape(B, S_q, KV, H // KV, D)
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+
+    def one_chunk(qc: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc.to(torch.float32),
+                         k32) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = s + _bias(qp, k_pos, causal, window)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v32)
+
+    if S_q <= q_chunk:
+        o = one_chunk(qg, q_pos)
+    else:
+        assert S_q % q_chunk == 0, "seq len must be divisible by q_chunk"
+        o = torch.cat([one_chunk(qg[:, i:i + q_chunk], q_pos[i:i + q_chunk])
+                       for i in range(0, S_q, q_chunk)], dim=1)
     return o.reshape(B, S_q, H, v.shape[-1]).to(q.dtype)
 
 

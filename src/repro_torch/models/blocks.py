@@ -13,17 +13,25 @@ the stack is an ``nn.ModuleList`` walked by a Python loop, and each
 layer's cache is its own dict, ``{"attn": ..., "ssm": ...}`` as the
 family has them (a list of them for the stack). Per-layer windows are a
 list of ints (or None). Each block returns its router aux loss and the
-stack sums them, as the reference's scan does.
+stack sums them, as the reference's scan does. Without a cache each
+block runs under ``cfg.remat`` (``torch.utils.checkpoint``), as the
+reference wraps its scanned block in ``jax.checkpoint``.
 
 The frontends are stubs in both packages: vision is ``lm.Projector`` over
 patch embeddings, audio ``encdec.FrontendProj`` over frame embeddings.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from .attention import GQA, init_attention_cache, make_attention
@@ -166,6 +174,36 @@ def init_stack_cache(cfg: ArchConfig, num_layers: int, batch: int,
             for _ in range(num_layers)]
 
 
+#: the ops whose outputs ``remat="dots"`` keeps: the 2-D matrix products
+#: a ``x @ w`` dispatches to (``jax.checkpoint_policies.
+#: checkpoint_dots_with_no_batch_dims``); batched products (attention's
+#: einsums, the experts') are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block: nn.Module, policy: str):
+    """``block`` under the reference's ``_remat`` policy: "none" as it is;
+    "full" checkpointed (its activations dropped after the forward and
+    recomputed in the backward); "dots" checkpointed keeping the outputs
+    of its matrix products (``_DOTS``)."""
+    if policy == "none":
+        return block
+    if policy == "full":
+        return functools.partial(checkpoint, block, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, block, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"remat must be none, dots or full, got {policy!r}")
+
+
 def apply_stack(
     layers: nn.ModuleList,
     x: torch.Tensor,
@@ -176,15 +214,19 @@ def apply_stack(
     causal: bool = True,
     encoder_out: Optional[torch.Tensor] = None,
     encoder_positions: Optional[torch.Tensor] = None,
+    remat: str = "none",
 ) -> Tuple[torch.Tensor, Aux, Optional[List[LayerCache]]]:
     """Run the blocks in order over x. Returns (x, the layers' summed
-    router aux loss, cache)."""
+    router aux loss, cache). Without a cache each block runs under the
+    ``remat`` policy (the training forward passes ``cfg.remat``; with a
+    cache the reference takes "none" too)."""
     aux: Aux = 0.0
     for i, block in enumerate(layers):
-        x, a, _ = block(x, positions, None if windows is None else windows[i],
-                        cache=None if cache is None else cache[i],
-                        prefill=prefill, causal=causal,
-                        encoder_out=encoder_out,
-                        encoder_positions=encoder_positions)
+        run = _remat(block, remat if cache is None else "none")
+        x, a, _ = run(x, positions, None if windows is None else windows[i],
+                      cache=None if cache is None else cache[i],
+                      prefill=prefill, causal=causal,
+                      encoder_out=encoder_out,
+                      encoder_positions=encoder_positions)
         aux = aux + a
     return x, aux, cache

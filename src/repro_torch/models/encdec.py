@@ -3,19 +3,22 @@
 The port of the JAX package's ``models/encdec.py``:
 
     init(cfg, seed, device)                        -> params (an ``EncDec``)
-    encode(cfg, params, frames)                    -> enc (B, S_src, d)
+    encode(cfg, params, frames, prefill)           -> enc (B, S_src, d)
+    forward(cfg, params, batch)                    -> (loss, metrics) [train]
     init_cache(cfg, batch, cache_len, device)      -> decoder caches
     prefill(cfg, params, batch, cache)             -> (logits, cache, enc)
     decode_step(cfg, params, tokens, pos, cache, enc) -> (logits, cache)
 
 Encoder: bidirectional self-attention over stub frame embeddings (the
 speech frontend supplies (B, S_src, frontend_dim)), through the flash
-kernel with ``causal=False``. Decoder: causal self-attention, then
-cross-attention to the encoder's output (no RoPE, nothing masked): in
-the prefill through the flash kernel, S_q = S_tgt against S_k = S_src;
-in a decode step through ``grouped_attention``, with K and V projected
-from the encoder's output again every step, as the reference does.
-The training forward (the loss) is ported with the training slice.
+kernel with ``causal=False`` when serving. Decoder: causal
+self-attention, then cross-attention to the encoder's output (no RoPE,
+nothing masked): in the prefill through the flash kernel, S_q = S_tgt
+against S_k = S_src; in a decode step through ``grouped_attention``, with
+K and V projected from the encoder's output again every step, as the
+reference does. The training forward (``forward``, the loss) attends
+through ``grouped_attention`` everywhere, encoder included: the flash
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..configs.base import ArchConfig
 from .blocks import Block, LayerCache, apply_stack, init_stack_cache, \
     layer_windows
 from .layers import Embedding, RMSNorm, _param, init_params_
+from .lm import next_token_ce
 
 
 class FrontendProj(nn.Module):
@@ -80,16 +84,39 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)
 
 
-def encode(cfg: ArchConfig, params: EncDec,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ArchConfig, params: EncDec, frames: torch.Tensor,
+           prefill: bool = True) -> torch.Tensor:
     """(B, S_src, frontend_dim) frames -> (B, S_src, d) in the compute
     dtype: the projection, the encoder stack (non-causal, RoPE at
-    0..S_src-1, through the flash kernel), the final encoder norm."""
+    0..S_src-1), the final encoder norm. ``prefill`` (serving) attends
+    through the flash kernel; the training forward passes False and
+    attends through ``grouped_attention`` with every block under
+    ``cfg.remat``."""
     x = params.frontend_proj(frames, cfg.dtype("compute"))
     positions = _arange(x.shape[1], x.device)
-    x, _, _ = apply_stack(params.encoder, x, positions, None, prefill=True,
-                          causal=False)
+    x, _, _ = apply_stack(params.encoder, x, positions, None,
+                          prefill=prefill, causal=False,
+                          remat="none" if prefill else cfg.remat)
     return params.enc_norm(x)
+
+
+def forward(cfg: ArchConfig, params: EncDec,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Training forward over {"frames": (B, S_src, fdim), "tokens",
+    "labels": (B, S_tgt)}: the mean next-token cross-entropy of the
+    decoder (no aux weight: the reference returns ``ce`` as the loss).
+    Returns (loss, {"ce", "aux", "tokens"})."""
+    enc = encode(cfg, params, batch["frames"], prefill=False)
+    x = params.embed.embed(batch["tokens"], cfg.dtype("compute"))
+    positions = _arange(x.shape[1], x.device)
+    x, aux, _ = apply_stack(
+        params.decoder, x, positions, None, encoder_out=enc,
+        encoder_positions=_arange(enc.shape[1], enc.device),
+        remat=cfg.remat)
+    logits = params.unembed.unembed(params.final_norm(x))
+    ce, denom = next_token_ce(logits, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,

@@ -1,9 +1,11 @@
-"""Decoder-only language model, serving half: init, cache, prefill, decode.
+"""Decoder-only language model: init, the training loss, cache, prefill,
+decode.
 
 The port of the JAX package's ``models/lm.py`` for every decoder-only
 family (dense, MoE, MLA, SSM, hybrid, vision-language):
 
     init(cfg, seed, device)                    -> params (an ``LM`` module)
+    forward(cfg, params, batch)                -> (loss, metrics)  [train]
     init_cache(cfg, batch, cache_len, device)  -> per-layer caches
     prefill(cfg, params, batch, cache)         -> (last logits, cache)
     decode_step(cfg, params, tokens, pos, cache) -> (logits, cache)
@@ -12,8 +14,8 @@ family (dense, MoE, MLA, SSM, hybrid, vision-language):
 ``batch`` is a dict {"tokens": (B, S) integer tensor}, plus
 {"image_embeds": (B, N, frontend_dim)} for the vision configs: the
 frontend is a stub over precomputed patch embeddings, and the projector
-maps them to N image tokens that go before the text. The training
-forward (``lm.forward``, the loss) is ported with the training slice.
+maps them to N image tokens that go before the text. The training batch
+adds {"labels": (B, S)}, with ``IGNORE`` (-100) as the ignore index.
 
 ``init`` allocates every parameter on the requested device and fills it
 there with an explicit generator: a full-width model never passes
@@ -33,6 +35,8 @@ from .blocks import Block, LayerCache, apply_stack, init_stack_cache, \
     layer_windows
 from .layers import Embedding, RMSNorm, _param, init_params_
 
+#: the labels' ignore index
+IGNORE = -100
 
 class Projector(nn.Module):
     """LLaVA's 2-layer projector from the vision hidden to d_model:
@@ -126,6 +130,55 @@ def _embed_inputs(cfg: ArchConfig, params: LM, batch: Dict) -> torch.Tensor:
         img_tok = params.projector(batch["image_embeds"].to(cdt))
         x = torch.cat([img_tok, x], dim=1)
     return x
+
+
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor):
+    """The mean next-token cross-entropy over the labels that are not
+    ``IGNORE``, in float32: (ce, tokens counted, at least 1).
+
+    The reference computes the negative log-likelihood as a one-hot
+    contraction (``ce_impl="onehot"``, so that a vocab-sharded TPU mesh
+    need not gather the logits) or by ``take_along_axis`` ("gather").
+    Both are a gather here: the one-hot sum is V - 1 exact zeros and one
+    finite term, which is that term bit for bit, and at Gemma's vocabulary
+    the one-hot would be an 8.4 GB float32 tensor of its own."""
+    logp = torch.log_softmax(logits.to(torch.float32)[:, :-1], dim=-1)
+    targets = labels[:, 1:]
+    mask = targets != IGNORE
+    tgt = torch.where(mask, targets, 0).to(torch.int64)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1)
+    ce = torch.where(mask, nll, 0.0).sum() / denom
+    return ce, denom
+
+
+def forward(cfg: ArchConfig, params: LM,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Training forward: the mean next-token cross-entropy plus the MoE
+    aux loss, ``ce + router_aux_weight * aux / num_layers``. Returns
+    (loss, {"ce", "aux", "tokens"}). Image tokens go first, their labels
+    ``IGNORE``. Every block runs under ``cfg.remat`` and attends through
+    ``grouped_attention`` (no flash: the kernel has no backward), as the
+    reference's training forward does."""
+    x = _embed_inputs(cfg, params, batch)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    windows = layer_windows(cfg, cfg.num_layers)
+    x, aux, _ = apply_stack(params.layers, x, positions, windows,
+                            remat=cfg.remat)
+    logits = params.logits(params.final_norm(x))
+
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        n_img = batch["image_embeds"].shape[1]
+        pad = torch.full((labels.shape[0], n_img), IGNORE,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    ce, denom = next_token_ce(logits, labels)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    loss = ce + aux_w * aux / max(cfg.num_layers, 1)
+    return loss, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,

@@ -1,0 +1,97 @@
+"""AdamW, the port of the JAX package's ``optim/adamw.py``: the
+reference's arithmetic over tensors.
+
+    g32   = g * clip,  clip = min(1, grad_clip / (global_norm(g) + 1e-9))
+    m32   = m * b1 + (1 - b1) * g32
+    v32   = v * b2 + (1 - b2) * g32**2
+    delta = (m32 / bc1) / (sqrt(v32 / bc2) + eps) + weight_decay * p
+    p     = p - lr * lr_scale * delta,   bc = 1 - b ** step  (float32)
+
+in float32, the moments stored back in their dtype: the params' unless
+``fp32_moments``. ``torch.optim.AdamW`` computes the same update up to
+rounding (it decays the params before the step and divides by
+``sqrt(bc2)`` apart), but it has no global-norm clip and rounds at other
+points; this writes the reference's operations in its order.
+
+Params, grads and moments are flat dicts of tensors by parameter name
+(``dict(module.named_parameters())``). Where the reference returns new
+trees, ``adamw_update`` writes the params and moments IN PLACE (the
+values are the same): a full-width model's state does not fit twice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Mapping, Tuple, Union
+
+import torch
+
+Tensors = Mapping[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    fp32_moments: bool = False
+
+
+def adamw_init(params: Tensors, cfg: AdamWConfig) -> Dict:
+    """Zero moments beside each param, and the step counter: an int32
+    0-d tensor on the params' device."""
+    def mom(p):
+        dt = torch.float32 if cfg.fp32_moments else p.dtype
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    device = next(iter(params.values())).device
+    return {
+        "m": {name: mom(p) for name, p in params.items()},
+        "v": {name: mom(p) for name, p in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tensors: Tensors) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tensors.values()))
+
+
+@torch.no_grad()
+def adamw_update(params: Tensors, grads: Tensors, state: Dict,
+                 cfg: AdamWConfig,
+                 lr_scale: Union[float, torch.Tensor] = 1.0
+                 ) -> Tuple[Tensors, Dict, Dict]:
+    """One AdamW step over every param of ``params`` (``grads`` has the
+    same names). Updates ``params`` and the state's moments in place and
+    returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+
+    b1, b2 = cfg.b1, cfg.b2
+    t = step.to(torch.float32)
+    bc1 = 1.0 - torch.full((), b1, dtype=torch.float32, device=t.device) ** t
+    bc2 = 1.0 - torch.full((), b2, dtype=torch.float32, device=t.device) ** t
+    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
+                                  device=t.device)
+
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g32 = grads[name].to(torch.float32) * clip
+        m32 = m.to(torch.float32) * b1
+        m32.add_((1 - b1) * g32)
+        v32 = v.to(torch.float32) * b2
+        v32.add_((1 - b2) * torch.square(g32))
+        del g32
+        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
+        m.copy_(m32)
+        v.copy_(v32)
+        del m32, v32
+        delta.add_(cfg.weight_decay * p.to(torch.float32))
+        p.copy_(p.to(torch.float32) - lr * delta)
+    return params, {"m": state["m"], "v": state["v"], "step": step}, \
+        {"grad_norm": gnorm, "lr": lr}

@@ -8,7 +8,9 @@ service paths on a CUDA ledger deciding as ``repro.sim`` on numpy or as
 the CPU run does, with the checkpoint's ledger still on the card; the
 reduced serving path (dense, MoE, MLA, vision, Mamba-2, Hymba and
 SeamlessM4T) launching the model kernels and answering as the CPU run
-does, one full-width MoE layer routing as the CPU does, and one
+does; rmsnorm's backward kernel against its plain version, its autograd
+function reaching a float32 and a bf16 scale, raising on a failed
+build, and a reduced train step on the card matching the CPU's; one full-width MoE layer routing as the CPU does, and one
 full-width MLA layer of each MLA config, one Hymba block and one
 SeamlessM4T decoder block computing as the CPU does. Skipped where there
 is no card; on one, run ``PYTHONPATH=src python -m pytest -q
@@ -23,7 +25,8 @@ import torch
 
 import repro_torch as rt
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention, minplus, pricing, rmsnorm
+from repro_torch.kernels import flash_attention, minplus, ops, pricing, \
+    rmsnorm
 from repro_torch.models import build_model
 from repro_torch.serve import Request, ServeEngine
 
@@ -311,6 +314,169 @@ def test_rmsnorm_kernel_is_deterministic(cuda, N, d, dtype):
     scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
     _equal(rmsnorm.rmsnorm_cuda(x, scale).float(),
            rmsnorm.rmsnorm_cuda(x, scale).float())
+
+
+def _bwd_close(dx, ds, want_dx, want_ds, x, scale, dy):
+    """The backward kernel's tolerances: float32 dx to 1e-5; bf16 dx to
+    one bf16 ulp of its row's largest |dx|, plus 16 float32 ulps of its
+    row's largest |r g| (``g - x r^2 mean(g x)`` cancels: at d = 1, dx =
+    r g eps / (x^2 + eps), far below its terms, so the two float32
+    computations differ by a few ulps of the terms before rounding);
+    dscale to rtol 1e-5 (atol 1e-5 of its largest, for columns that sum
+    to near zero)."""
+    if dx.dtype == torch.bfloat16:
+        x32 = x.float()
+        r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6)
+        terms = (r * dy.float() * scale.float()).abs().amax(-1, keepdim=True)
+        big = want_dx.float().abs().amax(-1, keepdim=True)
+        tol = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7) \
+            + 16 * torch.exp2(torch.floor(torch.log2(
+                terms.clamp_min(1e-30))) - 23)
+        assert bool(((dx.float() - want_dx.float()).abs() <= tol).all())
+    else:
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    atol = 1e-5 * float(want_ds.float().abs().max())
+    torch.testing.assert_close(ds.float(), want_ds.float(), rtol=1e-5,
+                               atol=atol)
+
+
+def _bwd_case(gen, N, d, dtype, cuda):
+    x = (torch.randn((N, d), generator=gen) * 3).to(dtype).to(cuda)
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    dy = torch.randn((N, d), generator=gen).to(dtype).to(cuda)
+    return x, scale, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", [
+    # the training shape (Gemma-7B, 2 x 4096 tokens), its decode rows,
+    # single-element and odd rows, the widest row, slabs of 1 and of many
+    # rows, narrow rows many to a block
+    (8192, 3072), (4, 3072), (300, 1), (33, 77), (16, 16384), (1, 3072),
+    (513, 256), (65536, 128), (1000, 128), (96, 512), (3, 50), (7, 1536),
+    (4096, 4096),
+])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
+    gen = torch.Generator().manual_seed(N + d)
+    x, scale, dy = _bwd_case(gen, N, d, dtype, cuda)
+    dx, ds = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    assert dx.dtype == dtype and ds.dtype == torch.float32
+    _bwd_close(dx, ds, *rmsnorm.rmsnorm_bwd_torch(x, scale, dy), x, scale,
+               dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_unaligned_input_matches_plain(cuda, dtype):
+    """x and dy one element off a 16-byte boundary: the element-wise
+    path."""
+    gen = torch.Generator().manual_seed(13)
+    N, d = 40, 3072
+    x, dy = ((torch.randn((N * d + 1,), generator=gen) * 3).to(dtype)
+             .to(cuda)[1:].view(N, d) for _ in range(2))
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    assert x.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+    dx, ds = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    _bwd_close(dx, ds, *rmsnorm.rmsnorm_bwd_torch(x, scale, dy), x, scale,
+               dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", [(8192, 3072), (4, 3072), (1000, 128)])
+def test_rmsnorm_bwd_kernel_is_deterministic(cuda, N, d, dtype):
+    """Partial sums over fixed slabs added in a fixed order, no atomics:
+    two launches agree bit for bit, dscale included."""
+    gen = torch.Generator().manual_seed(14)
+    x, scale, dy = _bwd_case(gen, N, d, dtype, cuda)
+    a = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    b = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    for u, v in zip(a, b):
+        _equal(u.float(), v.float())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_fn_gradient_reaches_the_scale(cuda, scale_dtype):
+    """``ops.rmsnorm`` on the card under autograd: one forward and one
+    backward launch, the gradient on x and on the scale parameter in its
+    own dtype (the kernels read a float32 copy of it)."""
+    gen = torch.Generator().manual_seed(15)
+    x, scale, dy = _bwd_case(gen, 3 * 64, 1024, torch.bfloat16, cuda)
+    x = x.view(3, 64, 1024).requires_grad_()
+    w = torch.nn.Parameter(scale.to(scale_dtype))
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    y = ops.rmsnorm(x, w)
+    y.backward(dy.view(3, 64, 1024))
+    assert (rmsnorm.LAUNCHES, rmsnorm.LAUNCHES_BWD) == (1, 1)
+    assert w.grad is not None and w.grad.dtype == scale_dtype
+    want_dx, want_ds = rmsnorm.rmsnorm_bwd_torch(x.detach(), w.detach(),
+                                                 dy.view(3, 64, 1024))
+    assert want_ds.dtype == scale_dtype
+    _bwd_close(x.grad.view(-1, 1024), w.grad, want_dx.view(-1, 1024),
+               want_ds, x.detach().view(-1, 1024), w.detach(), dy)
+
+
+def test_rmsnorm_bwd_failed_build_raises_without_fallback(cuda,
+                                                          monkeypatch):
+    """With the backward's source failing to build, the backward raises:
+    no plain version stands in on the card."""
+    from repro_torch.kernels import _build
+
+    x = torch.randn((8, 256), device=cuda, requires_grad=True)
+    w = torch.nn.Parameter(torch.ones(256, device=cuda))
+    y = ops.rmsnorm(x, w)        # the forward's entry, already loaded
+
+    def failing_load(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", failing_load)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    launches = rmsnorm.LAUNCHES_BWD
+    with pytest.raises(RuntimeError, match="rmsnorm_bwd"):
+        y.sum().backward()
+    assert rmsnorm.LAUNCHES_BWD == launches
+    assert x.grad is None and w.grad is None
+
+
+def test_reduced_training_on_the_card_matches_cpu(cuda):
+    """Reduced Gemma (float32, TF32 off, remat "full") for one train step
+    on the card and on the CPU from the same weights: every parameter gets
+    a finite, non-zero gradient on the card, within 1e-4 of its tensor's
+    largest CPU gradient; the loss to 1e-5; the norms' launches exact
+    (each block's two norms run again in the backward)."""
+    import dataclasses
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_source
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma-7b", reduced=True),
+                              remat="full")
+    model = build_model(cfg)
+    opt = AdamWConfig()
+    params = model.init(0, cuda)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    batch = make_source(cfg, InputShape("t", 64, 4, "train")).batch(0)
+    out = {}
+    for name, p in (("cuda", params), ("cpu", cpu_params)):
+        dev = next(p.parameters()).device
+        state = {"params": p,
+                 "opt": adamw_init(dict(p.named_parameters()), opt)}
+        rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+        _, metrics = make_train_step(model, opt)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[name] = (float(metrics["loss"]),
+                     {n: q.grad.cpu() for n, q in p.named_parameters()},
+                     (rmsnorm.LAUNCHES, rmsnorm.LAUNCHES_BWD))
+    L = cfg.num_layers
+    assert out["cuda"][2] == ((2 * L + 1) + 2 * L, 2 * L + 1)
+    assert out["cpu"][2] == (0, 0)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, g in out["cuda"][1].items():
+        want = out["cpu"][1][n]
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), n
+        assert float((g - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -380,8 +380,20 @@ def test_compute_params_casts_weights_once_and_keeps_the_numbers():
 @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
                                   "seamless-m4t-medium"])
 def test_later_slices_raise(arch):
-    """These families serve now; their training loss is a later slice."""
-    model = build_model(get_config(arch, reduced=True))
+    """These families' training loss, once a later slice, is ported: it
+    is finite on a batch and raises on a batch without its inputs
+    (``tests/test_torch_train.py`` holds it to the reference)."""
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
     params = model.init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(KeyError):
         model.train_loss(params, {})
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(2, 16, cfg.frontend_dim)).astype(np.float32))
+    loss, metrics = model.train_loss(params, batch)
+    assert loss.shape == () and np.isfinite(float(loss.detach()))
+    assert set(metrics) == {"ce", "aux", "tokens"}

@@ -1,6 +1,8 @@
 """The port's RMSNorm (``repro_torch.kernels.rmsnorm``, routed by
 ``repro_torch.kernels.ops.rmsnorm``) against the JAX package's Pallas
-kernel in interpret mode, on the CPU.
+kernel in interpret mode, on the CPU; its gradient ``rmsnorm_bwd_torch``
+against ``jax.vjp`` of the reference's ``layers.rmsnorm`` (the same
+tolerances) and finite differences in float64 (``gradcheck``).
 
 ``rmsnorm_torch`` is what the CUDA kernel is held to on the card. Inputs
 are made with numpy from a seed and handed to both packages. Tolerances
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import types
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.rmsnorm import (
@@ -190,3 +194,138 @@ def test_failed_build_raises_every_time(monkeypatch):
         with pytest.raises(RuntimeError, match="rmsnorm"):
             rn._entry(torch.bfloat16)
     assert rn._FNS == {}
+
+
+# ---------------------------------------------------------------- backward
+def _jax_grads(x, scale, dy):
+    """(dx, dscale) of the reference's ``layers.rmsnorm`` by ``jax.vjp``."""
+    _, vjp = jax.vjp(lambda xx, ss: jlayers.rmsnorm({"scale": ss}, xx),
+                     jnp.asarray(x), jnp.asarray(scale))
+    return vjp(jnp.asarray(dy))
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 64), (96, 512), (5, 50), (3, 7, 128),
+                                   (300, 1)])
+def test_rmsnorm_bwd_matches_jax_grad(shape, name):
+    """The hand-written gradient against ``jax.vjp`` of the reference's
+    norm through its casts: dx in x's dtype, dscale summed over every
+    leading row in scale's (float32) dtype."""
+    _, tdt, ndt = _DTYPES[name]
+    x, scale = _inputs(sum(shape), shape, ndt)
+    dy = np.random.default_rng(1).normal(size=shape).astype(
+        np.float32).astype(ndt)
+    want_dx, want_ds = _jax_grads(x, scale, dy)
+    dx, ds = rn.rmsnorm_bwd_torch(_torch(x), torch.from_numpy(scale),
+                                  _torch(dy))
+    assert dx.dtype == tdt and dx.shape == shape
+    assert ds.dtype == torch.float32 and ds.shape == (shape[-1],)
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(want_dx, np.float32), **_tol(name))
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds, np.float32),
+                               **_tol(name))
+
+
+def test_rmsnorm_bwd_keeps_a_bf16_scale_dtype():
+    """A bf16 scale (DeepSeek-V2's params) gets its gradient in bf16, the
+    float32 sum rounded once, as ``jax.vjp`` gives it."""
+    x, scale = _inputs(11, (16, 96), ml_dtypes.bfloat16)
+    scale = scale.astype(ml_dtypes.bfloat16)
+    dy = np.random.default_rng(2).normal(size=(16, 96)).astype(
+        ml_dtypes.bfloat16)
+    _, want_ds = _jax_grads(x, scale, dy)
+    _, ds = rn.rmsnorm_bwd_torch(_torch(x), _torch(scale), _torch(dy))
+    assert ds.dtype == torch.bfloat16
+    np.testing.assert_allclose(ds.float().numpy(),
+                               np.asarray(want_ds, np.float32), rtol=2e-2,
+                               atol=2e-2)
+
+
+class _PlainFn(torch.autograd.Function):
+    """rmsnorm_torch forward, the hand-written rmsnorm_bwd_torch backward:
+    what ``gradcheck`` holds to finite differences."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return rmsnorm_torch(x, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return rn.rmsnorm_bwd_torch(x, scale, dy)
+
+
+@pytest.mark.parametrize("shape", [(4, 6), (2, 3, 5), (7, 1)])
+def test_rmsnorm_bwd_passes_gradcheck(shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, dtype=torch.float64, generator=gen)
+    scale = torch.randn(shape[-1], dtype=torch.float64, generator=gen) + 1
+    x.requires_grad_()
+    scale.requires_grad_()
+    assert torch.autograd.gradcheck(_PlainFn.apply, (x, scale))
+
+
+def test_rmsnorm_bwd_is_autograds_gradient_of_the_plain_version():
+    x, scale = _inputs(5, (32, 80), np.float32)
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    dy = torch.randn((32, 80), generator=torch.Generator().manual_seed(5))
+    dx, ds = torch.autograd.grad(rmsnorm_torch(tx, ts), (tx, ts), dy)
+    got_dx, got_ds = rn.rmsnorm_bwd_torch(tx.detach(), ts.detach(), dy)
+    torch.testing.assert_close(got_dx, dx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_ds, ds, rtol=1e-5, atol=1e-5)
+
+
+def test_rmsnorm_on_cpu_is_differentiable_through_ops():
+    """``ops.rmsnorm`` on a CPU tensor is the plain version under
+    autograd: the gradient reaches x and the scale parameter."""
+    x, scale = _inputs(6, (3, 4, 32), np.float32)
+    tx = torch.from_numpy(x).requires_grad_()
+    ts = torch.nn.Parameter(torch.from_numpy(scale))
+    ops.rmsnorm(tx, ts).sum().backward()
+    want_dx, want_ds = rn.rmsnorm_bwd_torch(tx.detach(), ts.detach(),
+                                            torch.ones((3, 4, 32)))
+    torch.testing.assert_close(tx.grad, want_dx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ts.grad, want_ds, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,slab,lanes", [
+    (0, 1, 0), (1, 1, 1), (4, 1, 4), (512, 1, 512), (513, 2, 257),
+    (8192, 16, 512), (8191, 16, 512), (65536, 128, 512)])
+def test_bwd_slabs(rows, slab, lanes):
+    """Lanes of at most ``BWD_LANES``; every lane has a row; the lanes
+    cover every row."""
+    s = rn.rmsnorm_bwd_slabs(rows)
+    assert (s.slab, s.lanes) == (slab, lanes)
+    assert s.lanes <= rn.BWD_LANES and s.lanes * s.slab >= rows
+    assert s.lanes == 0 or (s.lanes - 1) * s.slab < rows
+
+
+def test_bwd_kernel_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_bwd_cuda(torch.ones((4, 8)), torch.ones(8),
+                            torch.ones((4, 8)))
+    with pytest.raises(ValueError, match=r"\(N, d\)"):
+        rn.rmsnorm_bwd_cuda(torch.ones((4, 8)), torch.ones(7),
+                            torch.ones((4, 8)))
+    with pytest.raises(TypeError):
+        rn.rmsnorm_bwd_cuda(torch.ones((4, 8), dtype=torch.float16),
+                            torch.ones(8), torch.ones((4, 8)))
+
+
+def test_bwd_failed_build_raises_every_time(monkeypatch):
+    """The backward's entry is built on first use; a failed build raises
+    on every call and nothing is cached."""
+    def failing_load(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", failing_load)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="rmsnorm_bwd"):
+            _build.entry("rmsnorm_bwd", rn._BWD_ENTRIES[torch.bfloat16],
+                         rn._BWD_ARGTYPES)
+    assert _build._ENTRIES == {}
+    assert "rmsnorm_bwd" in _build.SOURCES and \
+        _build.SOURCES["rmsnorm_bwd"] == ()
