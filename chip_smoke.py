@@ -66,7 +66,19 @@ paths:
     trainer writes read back equal leaf for leaf; then its 2-layer
     float32 cut trained 3 steps on the card and on the CPU from the same
     weights (each loss to rel 1e-5, every step-0 gradient to 1e-4 of its
-    tensor's largest, launches exact);
+    tensor's largest, launches exact), and one more step of the trained
+    point under ``FlopCounterMode``;
+  * the dry run (``repro_torch.launch.dryrun`` through its CLI, each plan
+    in a process of its own, all at once): the production plans at full
+    width and depth on fake process groups — Gemma-7B train_4k,
+    prefill_32k and decode_32k on 16x16 and train_4k on 2x16x16,
+    Phi-3.5-MoE train_4k, MiniCPM3-4B decode_32k — each with finite
+    per-device FLOPs, argument and peak bytes, collective bytes by kind
+    and link and the H100 roofline terms (Gemma's train_4k state under
+    80 GB a device); and the one-card plan of the training point
+    (``--host``, 4 layers, 2 x 4096), whose FLOPs and argument bytes must
+    equal the counted step's exactly, its peak and roofline compute term
+    printed beside the run's peak memory and step time;
   * the MoE serving path: Phi-3.5-MoE at full width (d_model 4096, 32 x
     128 query heads, 8 kv heads, 16 experts top-2 of d_ff 6400, vocab
     32064, capacity factor 1.25, groups of 512) cut to 8 of its 32
@@ -1857,9 +1869,46 @@ def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
     out["checkpoint"] = dict(step=step, leaves=len(got),
                              read_s=time.perf_counter() - t0)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    del trainer, tree, got, want_leaves
+    del tree, got, want_leaves
+    out["counted"] = counted_step(rmsnorm, cfg, p, trainer.final_state)
+    del trainer
     torch.cuda.empty_cache()
     return out
+
+
+def counted_step(rmsnorm, cfg, p: dict, state: dict) -> dict:
+    """One more train step of the point on the trained state, under
+    ``FlopCounterMode`` (it launches both norm kernels: 17 forward and 9
+    backward launches at 4 layers): its FLOPs, and the bytes of what the
+    step takes (params, AdamW moments and step counter, batch), for the
+    dry run's one-card plan."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_source
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    shape = InputShape("train_4k_cut", p["seq_len"], p["batch"], "train")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             make_source(cfg, shape, p["seed"]).batch(p["steps"]).items()}
+    step = make_train_step(build_model(cfg), AdamWConfig(lr=p["lr"]))
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
+    want = expected_train_launches(cfg, 1)
+    if launches != want:
+        raise AssertionError(f"counted step launches {launches} != {want}")
+    tensors = [*state["params"].parameters(), *state["opt"]["m"].values(),
+               *state["opt"]["v"].values(), state["opt"]["step"],
+               *batch.values()]
+    return {"flops": fc.get_total_flops(), "launches": launches,
+            "argument_bytes": sum(t.numel() * t.element_size()
+                                  for t in tensors)}
 
 
 def _tree_leaves(tree, prefix: str = "") -> dict:
@@ -2005,6 +2054,113 @@ def print_training(label: str, p: dict, tr: dict) -> None:
           f"{tr['queue_full_s']:.4f} s; top kernels by device time: "
           + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in tr["top"]))
+
+
+# ------------------------------------------------------------ dry run
+#: the production plans (full width and depth, launch.dryrun): Gemma-7B's
+#: three shapes on 16x16 and train_4k over two pods (2x16x16); the expert
+#: rules (Phi-3.5-MoE); MLA's 40 heads on a 16-way model axis (MiniCPM3)
+DRYRUN_PLANS = (("gemma-7b", "train_4k", False),
+                ("gemma-7b", "prefill_32k", False),
+                ("gemma-7b", "decode_32k", False),
+                ("gemma-7b", "train_4k", True),
+                ("phi3.5-moe-42b-a6.6b", "train_4k", False),
+                ("minicpm3-4b", "decode_32k", False))
+#: one card's memory
+CARD_BYTES = 80e9
+
+
+def dryrun_plans(p: dict = TRAIN_POINT, timeout: float = 300.0) -> tuple:
+    """The production plans and the one-card plan of the training point
+    (``--host``: this machine's one card, cut as the point), each through
+    the port's CLI (``python -m repro_torch.launch.dryrun``) in a process
+    of its own, all started together: a plan's process group (a fake one
+    of 256 or 512 ranks, the card's own of one) never meets this
+    script's. Returns ({name: result}, wall s); every process is stopped
+    before it returns."""
+    import os
+    import shutil
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    jobs = {f"{arch} {shape} {'2x16x16' if pods else '16x16'}":
+            ["--arch", arch, "--shape", shape] + (["--multi-pod"] if pods
+                                                  else [])
+            for arch, shape, pods in DRYRUN_PLANS}
+    jobs["one-card"] = ["--arch", p["arch"], "--shape", "train_4k", "--host",
+                        "--layers", str(p["layers"]),
+                        "--batch", str(p["batch"])]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs, results = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for i, (name, args) in enumerate(jobs.items()):
+            out = os.path.join(tmp, f"{i}.json")
+            log = open(out + ".log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", out], env=env, stdout=log,
+                stderr=subprocess.STDOUT), out, log)
+        for name, (proc, out, log) in procs.items():
+            rc = proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                       1.0))
+            log.close()
+            if rc != 0:
+                with open(out + ".log") as f:
+                    raise AssertionError(f"dry run {name} exited {rc}: "
+                                         f"{f.read()[-3000:]}")
+            with open(out) as f:
+                (results[name],) = json.load(f)
+    finally:
+        for proc, _, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results, time.perf_counter() - t0
+
+
+def plan_terms(name: str, r: dict, p: dict = TRAIN_POINT) -> dict:
+    """The roofline terms of a plan (``repro_torch.roofline``, H100
+    constants), for the config and shape it planned."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.roofline import roofline_terms
+
+    shape = SHAPES[r["shape"]]
+    if name == "one-card":
+        cfg = point_config(p)
+        shape = dataclasses.replace(shape, global_batch=p["batch"])
+    else:
+        cfg = get_config(r["arch"])
+    return roofline_terms(cfg, shape, r)
+
+
+def check_plan(name: str, r: dict) -> None:
+    """Every number finite, FLOPs and argument bytes positive."""
+    nums = [r["flops"], r["hlo_bytes"], *r["memory"].values(),
+            *r["collective_bytes"].values()]
+    if not all(np.isfinite(float(x)) for x in nums):
+        raise AssertionError(f"dry run {name}: a number is not finite: {r}")
+    if not (r["flops"] > 0 and r["memory"]["argument_bytes"] > 0):
+        raise AssertionError(f"dry run {name}: no FLOPs or no arguments")
+
+
+def print_plan(name: str, r: dict, t: dict) -> None:
+    mem, coll = r["memory"], r["collective_bytes"]
+    kinds = {k: v for k, v in coll.items() if not k.endswith("_pod")}
+    print(f"dry run {name} (mesh {r['mesh']}, {r['devices']} devices): "
+          f"{r['flops']:.6e} FLOPs a device; arguments "
+          f"{mem['argument_bytes'] / 1e9:.4f} GB, peak "
+          f"{mem['peak_bytes'] / 1e9:.4f} GB a device; collectives "
+          f"{ {k: f'{v:.4e}' for k, v in kinds.items()} } B a device, "
+          f"NVLink {coll.get('intra_pod', 0.0):.4e} B, InfiniBand "
+          f"{coll.get('cross_pod', 0.0):.4e} B; roofline compute "
+          f"{t['compute_s']:.4e} s, memory {t['memory_s']:.4e} s, "
+          f"collective {t['collective_s']:.4e} s, dominant {t['dominant']};"
+          f" L=1/L=2 extrapolation gap {r['extrapolation_gap']}; trace "
+          f"{r['lower_s']} s")
 
 
 def main() -> int:
@@ -2239,6 +2395,41 @@ def main() -> int:
           f"the card {tp['launches']}; cuda {tp['cuda_s']:.2f} s, cpu "
           f"{tp['cpu_s']:.2f} s")
     print(f"training phase wall {time.perf_counter() - t0:.2f} s")
+
+    # 8a'. the dry run: the production plans at full width and depth on
+    # fake 256- and 512-GPU meshes, and the one-card plan of the training
+    # point held to the step the training phase counted
+    plans, wall = dryrun_plans()
+    print(f"dry run ({len(plans)} plans, one process each, all at once; "
+          f"wall {wall:.2f} s) [{card}]")
+    for name, r in plans.items():
+        check_plan(name, r)
+        print_plan(name, r, plan_terms(name, r))
+    gemma = plans["gemma-7b train_4k 16x16"]["memory"]
+    if not gemma["argument_bytes"] < CARD_BYTES:
+        raise AssertionError(f"Gemma-7B train_4k's state is "
+                             f"{gemma['argument_bytes']} B a device")
+    one, ct = plans["one-card"], tr["counted"]
+    if one["flops"] != ct["flops"]:
+        raise AssertionError(f"one-card plan {one['flops']} FLOPs != the "
+                             f"counted step's {ct['flops']}")
+    if one["memory"]["argument_bytes"] != ct["argument_bytes"]:
+        raise AssertionError(f"one-card plan's arguments "
+                             f"{one['memory']['argument_bytes']} B != the "
+                             f"step's {ct['argument_bytes']} B")
+    t = plan_terms("one-card", one)
+    print(f"one-card plan = the counted step: {ct['flops']} FLOPs and "
+          f"{ct['argument_bytes']} B of params, moments, step and batch, "
+          f"both exactly (its launches {ct['launches']}); Gemma-7B train_4k "
+          f"on 16x16 holds {gemma['argument_bytes'] / 1e9:.4f} GB of state "
+          f"a device (under {CARD_BYTES / 1e9:.0f} GB), its traced peak "
+          f"{gemma['peak_bytes'] / 1e9:.4f} GB "
+          f"({'under' if gemma['peak_bytes'] < CARD_BYTES else 'over'} "
+          f"it); one-card plan peak {one['memory']['peak_bytes'] / 1e9:.4f} "
+          f"GB vs max_memory_allocated {tr['peak_gb']:.4f} GB; roofline "
+          f"compute {t['compute_s'] * 1e3:.3f} ms, memory "
+          f"{t['memory_s'] * 1e3:.3f} ms vs the measured step "
+          f"{float(np.median(tr['step_ms'])):.3f} ms [{card}]")
 
     # 8b. MLA, vision, MLA + MoE, SSM, hybrid and enc-dec serving:
     # MiniCPM3-4B cut to 16 layers, LLaVA-NeXT, DeepSeek-V2 cut to 6

@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, SyntheticLM, make_source
+from .pipeline import DataConfig, SyntheticLM, make_source, shard_batch
 
-__all__ = ["DataConfig", "SyntheticLM", "make_source"]
+__all__ = ["DataConfig", "SyntheticLM", "make_source", "shard_batch"]

@@ -5,9 +5,8 @@ the reference's bit for bit).
 Produces reproducible token streams with a simple Zipf-ish unigram
 mixture + induced n-gram structure so small models can demonstrably
 learn (loss decreases), without any external dataset. Batches are numpy
-arrays on the host; the trainer moves them to its device. Placing a
-batch on a device mesh (the reference's ``shard_batch``) comes with the
-``parallel`` slice.
+arrays on the host; the trainer moves them to its device, and
+``shard_batch`` places one on a device mesh, batch dim sharded.
 """
 from __future__ import annotations
 
@@ -71,3 +70,18 @@ def make_source(cfg: ArchConfig, shape: InputShape, seed: int = 0) -> SyntheticL
             seed=seed,
         )
     )
+
+
+def shard_batch(batch: Dict, mesh, batch_axes=("data",)) -> Dict:
+    """Place a host-global batch (numpy arrays or tensors) onto ``mesh``
+    as DTensors, the batch dim ``Shard(0)`` on each of ``batch_axes`` and
+    replicated on the other mesh dims."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..parallel import placements
+
+    pl = placements((tuple(batch_axes),), mesh)
+    return {k: distribute_tensor(torch.as_tensor(v, device=mesh.device_type),
+                                 mesh, pl)
+            for k, v in batch.items()}

@@ -4,14 +4,21 @@
   * ``--local``  — real steps of the reduced config through ``Trainer``,
                    on the CUDA card by default or on the CPU with
                    ``--device cpu``;
-  * default      — the reference's production lowering through its dry
-                   run, which comes with the dry-run slice: it raises
-                   ``NotImplementedError``.
+  * default      — the production plan: ``launch.dryrun.dryrun_one``
+                   traces the full config's train step on meta DTensors
+                   over the 16x16 (``--multi-pod``: 2x16x16) mesh of a
+                   fake process group, allocating nothing, and prints the
+                   per-device FLOPs, bytes, collective traffic and the
+                   roofline terms with the H100's constants. ``--device``
+                   is the mesh's device type (the card by default).
 
     PYTHONPATH=src python -m repro_torch.launch.train --local \\
         --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \\
+        --shape train_4k --device cpu
 
-``chip_smoke.py`` trains the full-width Gemma-7B on the card.
+``chip_smoke.py`` trains the full-width Gemma-7B on the card and holds
+the one-card plan of that training point to the run.
 """
 import argparse
 import sys
@@ -31,10 +38,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if not args.local:
-        raise NotImplementedError(
-            "the production lowering goes through the dry run "
-            "(launch/dryrun.py), which comes with the dry-run slice of "
-            "repro_torch; run --local")
+        from . import dryrun
+
+        dryrun.dryrun_one(args.arch, args.shape, multi_pod=args.multi_pod,
+                          device=args.device)
+        print("planned OK: the step traced on the production mesh without "
+              "allocating; deploy it on the real mesh.")
+        return 0
 
     from ..configs import get_config
     from ..configs.base import InputShape

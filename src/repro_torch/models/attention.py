@@ -46,6 +46,7 @@ for the card.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -54,6 +55,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel.context import heads_parallel, split_evenly, unsplit, \
+    write_slice_
 from .layers import RMSNorm, _param, apply_rope
 
 NEG_INF = -1e30
@@ -176,14 +179,15 @@ class GQA(nn.Module):
                                           causal)
         elif cache is not None:
             _write(cache, positions, k=k, v=v)
-            out = grouped_attention(q, cache["k"], cache["v"], positions,
-                                    cache["positions"], causal=causal,
-                                    window=window,
+            # the query's heads whole against the length-split cache
+            out = grouped_attention(unsplit(q, 2), cache["k"], cache["v"],
+                                    positions, cache["positions"],
+                                    causal=causal, window=window,
                                     softcap=cfg.attn_logit_softcap)
         else:
-            out = grouped_attention(q, k, v, positions, kp, causal=causal,
-                                    window=window,
-                                    softcap=cfg.attn_logit_softcap)
+            out = heads_parallel(functools.partial(
+                grouped_attention, causal=causal, window=window,
+                softcap=cfg.attn_logit_softcap), q, k, v, positions, kp)
         H, hd, d = self.wo.shape
         y = out.reshape(B, S, H * hd) @ self.wo.reshape(H * hd, d).to(x.dtype)
         return y, cache
@@ -202,8 +206,8 @@ class GQA(nn.Module):
             raise ValueError(f"window must be >= 1, got {window}")
         if cache is not None:
             _write(cache, positions, k=k, v=v)
-        return ops.flash_attention(q, k, v, causal=causal,
-                                   window=window or 0)
+        return heads_parallel(functools.partial(
+            ops.flash_attention, causal=causal, window=window or 0), q, k, v)
 
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
@@ -224,13 +228,15 @@ def _write(cache: Cache, positions: torch.Tensor,
     """Ring-buffer write of S new entries of each named cache tensor
     (``k=..., v=...`` or ``c_kv=..., k_rope=...``, each (B, S, ...)) at
     ``pos % cache_len``, in place. The start is clamped so the S entries
-    fit, as ``jax.lax.dynamic_update_slice`` clamps it."""
+    fit, as ``jax.lax.dynamic_update_slice`` clamps it; a cache sharded
+    along its length (the dry run's) is written shard by shard
+    (``parallel.context.write_slice_``)."""
     cache_len = cache["positions"].shape[0]
     S = positions.shape[0]
     start = min(cache["pos"] % cache_len, cache_len - S)
     for name, t in new.items():
-        cache[name][:, start:start + S] = t.to(cache[name].dtype)
-    cache["positions"][start:start + S] = positions.to(torch.int32)
+        write_slice_(cache[name], 1, start, t.to(cache[name].dtype))
+    write_slice_(cache["positions"], 0, start, positions.to(torch.int32))
     cache["pos"] += S
 
 
@@ -300,11 +306,13 @@ class MLA(nn.Module):
             k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
                 B, S, H, m.qk_rope_head_dim)], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)
-            out = grouped_attention(q, k, v, positions, positions,
-                                    causal=causal, window=window,
-                                    scale=1.0 / math.sqrt(q.shape[-1]))
+            out = heads_parallel(functools.partial(
+                grouped_attention, causal=causal, window=window,
+                scale=1.0 / math.sqrt(q.shape[-1])), q, k, v, positions,
+                positions)
         Hv = H * m.v_head_dim
-        y = out.reshape(B, S, Hv) @ self.wo.reshape(Hv, -1).to(x.dtype)
+        out = split_evenly(split_evenly(out, 2, H).reshape(B, S, Hv), 2, H)
+        y = out @ self.wo.reshape(Hv, -1).to(x.dtype)
         return y, cache
 
     def _absorbed(self, q_nope, q_rope, cache, positions, window, causal):

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ArchConfig
+from ..parallel.context import constrain_batch
 from .attention import GQA, init_attention_cache, make_attention
 from .layers import MLP, RMSNorm
 from .moe import MoE
@@ -103,7 +104,12 @@ class Block(nn.Module):
         """Returns (x, the layer's router aux loss, cache); the aux loss
         is 0.0 in a block without experts. ``prefill`` routes the
         self-attention and, with ``encoder_out``, the cross-attention
-        through the flash kernel (``attention`` module docstring)."""
+        through the flash kernel (``attention`` module docstring). Each
+        branch's output is pinned batch-sharded before it joins the
+        residual (``parallel.context.constrain_batch``: the identity but
+        under the dry run's context, where it makes DTensor reduce a
+        tensor-parallel partial sum there rather than carry it into the
+        next norm)."""
         a_cache = None if cache is None else cache.get("attn")
         s_cache = None if cache is None else cache.get("ssm")
         if self.hybrid:
@@ -111,31 +117,31 @@ class Block(nn.Module):
             a_out, _ = self.attn(h, positions, window=window, cache=a_cache,
                                  prefill=prefill, causal=causal)
             s_out, _ = self.ssm(h, cache=s_cache)
-            x = x + 0.5 * (self.attn_out_norm(a_out)
-                           + self.ssm_out_norm(s_out))
+            x = x + 0.5 * (self.attn_out_norm(constrain_batch(a_out))
+                           + self.ssm_out_norm(constrain_batch(s_out)))
         else:
             if hasattr(self, "attn"):
                 a_out, _ = self.attn(self.attn_norm(x), positions,
                                      window=window, cache=a_cache,
                                      prefill=prefill, causal=causal)
-                x = x + a_out
+                x = x + constrain_batch(a_out)
             if hasattr(self, "ssm"):
                 s_out, _ = self.ssm(self.ssm_norm(x), cache=s_cache)
-                x = x + s_out
+                x = x + constrain_batch(s_out)
 
         if encoder_out is not None and hasattr(self, "cross_attn"):
             c_out, _ = self.cross_attn(
                 self.cross_norm(x), positions, window=None, prefill=prefill,
                 causal=False, kv_source=encoder_out,
                 kv_positions=encoder_positions, use_rope=False)
-            x = x + c_out
+            x = x + constrain_batch(c_out)
 
         aux: Aux = 0.0
         if hasattr(self, "moe"):
             m_out, aux = self.moe(self.ffn_norm(x))
-            x = x + m_out
+            x = x + constrain_batch(m_out)
         elif hasattr(self, "mlp"):
-            x = x + self.mlp(self.ffn_norm(x))
+            x = x + constrain_batch(self.mlp(self.ffn_norm(x)))
         return x, aux, cache
 
 
@@ -219,7 +225,9 @@ def apply_stack(
     """Run the blocks in order over x. Returns (x, the layers' summed
     router aux loss, cache). Without a cache each block runs under the
     ``remat`` policy (the training forward passes ``cfg.remat``; with a
-    cache the reference takes "none" too)."""
+    cache the reference takes "none" too). Each block's output is pinned
+    batch-sharded under an activation-sharding context
+    (``parallel.context.constrain_batch``; the identity otherwise)."""
     aux: Aux = 0.0
     for i, block in enumerate(layers):
         run = _remat(block, remat if cache is None else "none")
@@ -228,5 +236,6 @@ def apply_stack(
                       prefill=prefill, causal=causal,
                       encoder_out=encoder_out,
                       encoder_positions=encoder_positions)
+        x = constrain_batch(x)  # keep the residual stream batch-sharded
         aux = aux + a
     return x, aux, cache

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..parallel.context import rows_of
 
 EMBED_STD = 0.02
 
@@ -101,7 +102,7 @@ class Embedding(nn.Module):
         self.table = _param((vocab, d_model), dtype, device)
 
     def embed(self, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-        return self.table.to(compute_dtype)[tokens]
+        return rows_of(self.table.to(compute_dtype), tokens)
 
     def unembed(self, x: torch.Tensor,
                 softcap: Optional[float] = None) -> torch.Tensor:

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..backend.torch_backend import resolve_device
 from ..configs.base import ArchConfig
+from ..parallel.context import constrain_batch, gather_last
 from .blocks import Block, LayerCache, apply_stack, init_stack_cache, \
     layer_windows
 from .layers import Embedding, RMSNorm, _param, init_params_
@@ -146,7 +147,9 @@ def next_token_ce(logits: torch.Tensor, labels: torch.Tensor):
     targets = labels[:, 1:]
     mask = targets != IGNORE
     tgt = torch.where(mask, targets, 0).to(torch.int64)
-    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    # pinned batch-sharded under the dry run's context, so the gradient
+    # coming back from the sum is split by batch before it is scattered
+    nll = constrain_batch(-gather_last(logp, tgt[..., None])[..., 0])
     denom = torch.clamp(mask.sum(), min=1)
     ce = torch.where(mask, nll, 0.0).sum() / denom
     return ce, denom
@@ -159,14 +162,16 @@ def forward(cfg: ArchConfig, params: LM,
     (loss, {"ce", "aux", "tokens"}). Image tokens go first, their labels
     ``IGNORE``. Every block runs under ``cfg.remat`` and attends through
     ``grouped_attention`` (no flash: the kernel has no backward), as the
-    reference's training forward does."""
-    x = _embed_inputs(cfg, params, batch)
+    reference's training forward does. The embedding and the logits are
+    pinned batch-sharded under an activation-sharding context
+    (``parallel.context``; the identity otherwise)."""
+    x = constrain_batch(_embed_inputs(cfg, params, batch))
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     windows = layer_windows(cfg, cfg.num_layers)
     x, aux, _ = apply_stack(params.layers, x, positions, windows,
                             remat=cfg.remat)
-    logits = params.logits(params.final_norm(x))
+    logits = constrain_batch(params.logits(params.final_norm(x)))
 
     labels = batch["labels"]
     if cfg.frontend == "vision" and "image_embeds" in batch:

@@ -16,6 +16,7 @@ as the reference builds them: no step reads a value back to the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, MoEConfig
+from ..parallel.context import experts_parallel
 from .layers import MLP, _param
 
 
@@ -118,19 +120,26 @@ class MoE(nn.Module):
         """x: (B, S, d) -> (y, aux loss)."""
         xg = group_tokens(self.cfg.moe, x)
         r = route(self.cfg, self.router, xg)
-        expert_in = torch.einsum("gsec,gsd->gecd", r.dispatch, xg)
-        h_gate = torch.einsum("gecd,edf->gecf", expert_in,
-                              self.w_gate.to(x.dtype))
-        h_up = torch.einsum("gecd,edf->gecf", expert_in,
-                            self.w_up.to(x.dtype))
-        if self.cfg.activation == "silu":
-            act = F.silu(h_gate)
-        else:                      # the reference's gelu: tanh-approximate
-            act = F.gelu(h_gate, approximate="tanh")
-        h = torch.einsum("gecf,efd->gecd", act * h_up,
-                         self.w_down.to(x.dtype))
-        y = torch.einsum("gsec,gecd->gsd", r.combine.to(x.dtype), h)
+        dt = x.dtype
+        y = experts_parallel(
+            functools.partial(_experts, self.cfg.activation), xg,
+            r.dispatch, r.combine.to(dt), self.w_gate.to(dt),
+            self.w_up.to(dt), self.w_down.to(dt))
         y = y.reshape(x.shape)
         if hasattr(self, "shared"):
             y = y + self.shared(x)
         return y, r.aux
+
+
+def _experts(activation: str, xg, dispatch, combine, w_gate, w_up, w_down):
+    """The expert FFNs of the dispatched tokens, combined back: (G, S_g,
+    d), every expert on its C slots."""
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    h_gate = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
+    h_up = torch.einsum("gecd,edf->gecf", expert_in, w_up)
+    if activation == "silu":
+        act = F.silu(h_gate)
+    else:                          # the reference's gelu: tanh-approximate
+        act = F.gelu(h_gate, approximate="tanh")
+    h = torch.einsum("gecf,efd->gecd", act * h_up, w_down)
+    return torch.einsum("gsec,gecd->gsd", combine, h)

@@ -1,4 +1,6 @@
-from .train_step import make_train_state, make_train_step
+from .train_step import abstract_train_state, make_train_state, \
+    make_train_step
 from .trainer import Trainer, TrainerConfig
 
-__all__ = ["make_train_state", "make_train_step", "Trainer", "TrainerConfig"]
+__all__ = ["abstract_train_state", "make_train_state", "make_train_step",
+           "Trainer", "TrainerConfig"]

@@ -5,8 +5,8 @@ port of the JAX package's ``train/train_step.py``.
 The gradient is autograd's through the model's training forward
 (``Model.train_loss``): on the card every norm runs the rmsnorm kernel
 forward and backward (``kernels.rmsnorm.RMSNormFn``). The update is
-``optim.adamw_update``, in place. ``abstract_train_state`` (the dry run's
-shapes without allocation) comes with the dry-run slice.
+``optim.adamw_update``, in place. ``abstract_train_state`` is the same
+state on the meta device: the dry run's shapes without allocation.
 """
 from __future__ import annotations
 
@@ -24,6 +24,15 @@ def make_train_state(model: Model, seed: int, opt_cfg: AdamWConfig,
     """Random params from ``seed`` on ``device`` (None = the CUDA card)
     and zero AdamW state beside them."""
     params = model.init(seed, device)
+    return {"params": params,
+            "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+
+
+def abstract_train_state(model: Model, opt_cfg: AdamWConfig) -> Dict:
+    """The train state on the meta device: params (``Model.init_abstract``)
+    and AdamW's moments and step counter, every shape and dtype, no
+    storage."""
+    params = model.init_abstract()
     return {"params": params,
             "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
 

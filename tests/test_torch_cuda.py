@@ -12,7 +12,9 @@ does; rmsnorm's backward kernel against its plain version, its autograd
 function reaching a float32 and a bf16 scale, raising on a failed
 build, and a reduced train step on the card matching the CPU's; one full-width MoE layer routing as the CPU does, and one
 full-width MLA layer of each MLA config, one Hymba block and one
-SeamlessM4T decoder block computing as the CPU does. Skipped where there
+SeamlessM4T decoder block computing as the CPU does; the dry run's
+one-card plan of a reduced train step counting the real step's FLOPs
+and argument bytes. Skipped where there
 is no card; on one, run ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_cuda.py``."""
 from __future__ import annotations
@@ -1067,3 +1069,47 @@ def test_service_on_the_card_matches_offer_batch_on_cpu(cuda):
 
     assert decided(run["records"]) == decided(want)
     assert run["grants"] == sum(r.admitted for r in want) > 0
+
+
+def test_one_card_plan_equals_a_step_on_the_card(cuda):
+    """The dry run's plan of a reduced train step on this card's host
+    mesh (one device, nccl) counts the FLOPs ``FlopCounterMode`` counts
+    for the real step on the card, and its arguments hold the bytes of
+    the params, moments, step and batch the step takes; the real step
+    launches both norm kernels."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import make_source
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import host_world, make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("gemma-7b", reduced=True),
+                              num_layers=2)
+    shape = InputShape("t", 128, 2, "train")
+    with host_world():
+        plan = dryrun.dryrun_one("gemma-7b", "t", cfg_override=cfg,
+                                 shape_override=shape,
+                                 mesh_override=make_host_mesh(),
+                                 verbose=False)
+    assert not dist.is_initialized()
+    model = build_model(cfg)
+    state = make_train_state(model, 0, AdamWConfig(), "cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_source(cfg, shape, 0).batch(0).items()}
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    with FlopCounterMode(display=False) as fc:
+        state, _ = make_train_step(model, AdamWConfig())(state, batch)
+    torch.cuda.synchronize()
+    assert rmsnorm.LAUNCHES > 0 and rmsnorm.LAUNCHES_BWD > 0
+    assert plan["flops"] == fc.get_total_flops()
+    held = [*state["params"].parameters(), *state["opt"]["m"].values(),
+            *state["opt"]["v"].values(), state["opt"]["step"],
+            *batch.values()]
+    assert plan["memory"]["argument_bytes"] == sum(
+        t.numel() * t.element_size() for t in held)

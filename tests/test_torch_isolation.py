@@ -1,5 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither jax nor any module of the JAX package ``repro``, and no source of
+neither jax nor any module of the JAX package ``repro`` (nor
+``torch.testing._internal.distributed``, whose fake process group the
+dry run loads only when it plans), and no source of
 the port or ``chip_smoke.py`` imports either; ``repro_torch.sim`` exports
 what ``repro.sim`` does."""
 from __future__ import annotations
@@ -39,14 +41,19 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.sim", "repro_torch.sim.engine",
                  "repro_torch.core.baselines", "repro_torch.core._reference",
                  "repro_torch.launch.sim", "repro_torch.sim.faults",
-                 "repro_torch.sim.service"):
+                 "repro_torch.sim.service", "repro_torch.parallel",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.context", "repro_torch.roofline",
+                 "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.train"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'"
-        " or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        " or m.startswith('jax.') or m == 'repro' or m.startswith('repro.')"
+        " or m.startswith('torch.testing._internal.distributed'))\n"
         "print(repr(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
