@@ -68,6 +68,19 @@ paths:
     weights (each loss to rel 1e-5, every step-0 gradient to 1e-4 of its
     tensor's largest, launches exact), and one more step of the trained
     point under ``FlopCounterMode``;
+  * the scheduler-driven training runtime (``repro_torch.launch.cluster``,
+    the port of ``examples/cluster_sim.py``'s default mode): the
+    example's own settings (8 slots, 6 jobs over the ten archs, 3 steps a
+    slot, reduced float32 configs) scheduled and trained on the card and
+    on the CPU, the CPU run from the card run's initial params and
+    batches: identical decisions and utility, each offer kernel launched
+    as often as the CPU run calls its wrapper, exact rmsnorm launches,
+    every job's loss in every slot within 1e-5; then Gemma-7B and
+    Qwen3-32B jobs at full width cut to 2 layers (float32 params and
+    moments, bf16 compute, remat "full"), each job's state reckoned
+    from ``param_count`` before anything is allocated (the jobs sharing
+    a slot at most 64 GB), its step times, tokens/s, peak memory, the
+    profiled third step's idle share, finite losses, launches exact;
   * the dry run (``repro_torch.launch.dryrun`` through its CLI, each plan
     in a process of its own, all at once): the production plans at full
     width and depth on fake process groups — Gemma-7B train_4k,
@@ -124,9 +137,11 @@ line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
 (4, 3072), under ``gemma_7b_train`` the training run's launches and the
-training shape (8192, 3072), and under ``phi35_moe`` at (4096, 4096) and
+training shape (8192, 3072), under ``cluster`` the cluster phase's
+launches and Qwen3-32B's QK-norm shapes (65536, 128) and (8192, 128),
+and under ``phi35_moe`` at (4096, 4096) and
 (4, 4096); rmsnorm's backward at the training shape, its launches the
-training run's; flash
+training run's, and under ``cluster`` as the forward; flash
 attention's bf16 route and, under ``phi35_moe``, at Phi-3.5-MoE's
 prefill (4, 1024, 32 heads, 8 kv heads, 128), under ``llava_next`` at
 LLaVA-NeXT's (4, 3008, 32, 8, 128), under ``hymba_1_5b`` at Hymba's (4,
@@ -137,14 +152,16 @@ of its own (its launches: the float32 parity cuts'); rmsnorm at MLA's
 ranks under ``mla_norms`` and at the SSM, hybrid and enc-dec widths under
 ``ssm_hybrid_encdec_norms``; each serving phase's launches; the offer
 kernels' launches on the sim path beside the static path's, and on each
-of the chaos, recover, elastic and service paths), and as its last line
-``{"ok": true, "device": {...}}``. Every phase raises on
+of the chaos, recover, elastic, service and cluster paths), and as its
+last line ``{"ok": true, "device": {...}}``. Every phase raises on
 failure; the script exits nonzero without a result line when there is
 no card or no port next to it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -159,6 +176,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12          # float64 outside the tensor cores
 FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # bfloat16 tensor cores, dense
+L2_BYTES = 50 * 2**20           # the H100 SXM's L2 cache
 
 # the serving run: Gemma-7B at full width and depth
 SERVE_POINT = dict(arch="gemma-7b", requests=8, prompt_len=1024,
@@ -236,6 +254,19 @@ TRAIN_POINT = dict(arch="gemma-7b", layers=4, batch=2, seq_len=4096,
 TRAIN_PARITY_POINT = dict(arch="gemma-7b", layers=2, batch=2, seq_len=128,
                           steps=3, warmup=1, lr=3e-4, seed=1)
 
+# scheduler-driven training (repro_torch.launch.cluster): the example's
+# own settings (examples/cluster_sim.py's defaults: 8 slots, 6 jobs over
+# the ten archs, 3 steps a slot; reduced configs, float32) on cuda and
+# cpu; then Gemma-7B and Qwen3-32B jobs at full width cut to 2 layers
+# (float32 params and moments, bf16 compute, remat "full"), the third
+# step of each job profiled. The jobs sharing a slot must hold at most
+# 64 GB of params, gradients and moments (a 2-layer Qwen3-32B job, 40.5
+# GB; the whole model's 524 GB does not fit)
+CLUSTER_POINT = dict(slots=8, jobs=6, steps_per_slot=3)
+CLUSTER_FULL_POINT = dict(archs=("gemma-7b", "qwen3-32b"), slots=8, jobs=6,
+                          steps_per_slot=3, layers=2, state_limit_gb=64.0,
+                          profile_step=2)
+
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
 # the online simulator: bench_sim.py's FULL_GRID row 2, not cut
@@ -284,6 +315,22 @@ def _time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _copies(nbytes: int, *tensors) -> list:
+    """``tensors`` and enough copies of them that one round over the sets
+    moves at least twice the L2 (``nbytes`` a call): a call that takes the
+    next set in turn reads its inputs from HBM, as its byte bound
+    assumes, and not from the L2 the call before left them in."""
+    n = max(1, -(-2 * L2_BYTES // nbytes))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def _rotating(fn, sets: list):
+    """``fn`` over ``sets``, one set a call in turn."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
 
 
 def _device_ms(fn, name: str, reps: int = 50) -> float:
@@ -947,7 +994,13 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                  # (1600, 3200), SeamlessM4T (encoder and decoder rows),
                  # then their decode rows
                  (4096, 1536), (8192, 1600), (8192, 3200), (6400, 1024),
-                 (512, 1024), (4, 1600), (4, 3200), (4, 1024)]:
+                 (512, 1024), (4, 1600), (4, 3200), (4, 1024),
+                 # the cluster phase: Qwen3-32B's and Gemma-7B's block rows
+                 # and Qwen3's QK-norm over 16 x 64 tokens at full width;
+                 # the reduced configs' widths (d_model 256, MLA ranks 64
+                 # and 32, QK-norm at head width 32)
+                 (1024, 5120), (1024, 3072), (8192, 128), (1024, 256),
+                 (4096, 32), (1024, 64), (1024, 32), (512, 32)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -1523,23 +1576,29 @@ def same_routing(gpu: list, cpu: list, cfg) -> dict:
 
 # ----------------------------------------------- serving path: times
 def rmsnorm_numbers(rmsnorm, x, scale) -> dict:
+    """The forward kernel's times at x (N, d), each call on the next of
+    enough copies of x and the scale to pass the L2 (``_copies``), beside
+    the plain version's and ``F.rms_norm``'s on the same copies."""
     N, d = x.shape
     nbytes = 2 * N * d * x.element_size() + d * scale.element_size()
     ops = 4 * N * d                  # square, add; multiply twice
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    w = scale.to(x.dtype)
-    return {
+    sets = _copies(nbytes, x, scale)
+    kernel = _rotating(rmsnorm.rmsnorm_cuda, sets)
+    out = {
         "shape": [N, d], "dtype": str(x.dtype).replace("torch.", ""),
-        "ms": _time_ms(lambda: rmsnorm.rmsnorm_cuda(x, scale)),
-        "device_ms": _device_ms(lambda: rmsnorm.rmsnorm_cuda(x, scale),
-                                "rmsnorm_kernel"),
-        "plain_ms": _time_ms(lambda: rmsnorm.rmsnorm_torch(x, scale)),
+        "ms": _time_ms(kernel),
+        "device_ms": _device_ms(kernel, "rmsnorm_kernel"),
+        "plain_ms": _time_ms(_rotating(rmsnorm.rmsnorm_torch, sets)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": _time_ms(lambda: torch.nn.functional.rms_norm(
-            x, (d,), w, 1e-6)),
+        "library_ms": _time_ms(_rotating(
+            lambda xi, wi: torch.nn.functional.rms_norm(xi, (d,), wi, 1e-6),
+            [(xi, si.to(xi.dtype)) for xi, si in sets])),
     }
+    del sets
+    return out
 
 
 def _sdpa_op(fn) -> str:
@@ -1706,7 +1765,10 @@ def check_rmsnorm_bwd(rmsnorm) -> float:
     gen = torch.Generator().manual_seed(3)
     err = 0.0
     for N, d in [(8192, 3072), (4, 3072), (300, 1), (33, 77), (16, 16384),
-                 (1, 3072), (513, 256), (65536, 128), (4096, 4096)]:
+                 (1, 3072), (513, 256), (65536, 128), (4096, 4096),
+                 # the cluster phase's full-width and reduced rows
+                 (8192, 128), (1024, 5120), (1024, 3072), (1024, 256),
+                 (4096, 32), (1024, 64), (1024, 32)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -1732,12 +1794,15 @@ def check_rmsnorm_bwd(rmsnorm) -> float:
 def expected_train_launches(cfg, steps: int) -> dict:
     """rmsnorm's forward and backward launches over ``steps`` train steps,
     from the code: a step's forward runs every block's norms and the
-    final norm once; under ``remat`` "full" or "dots" the backward runs
+    final norm once (an enc-dec config also its encoder blocks' norms and
+    ``enc_norm``); under ``remat`` "full" or "dots" the backward runs
     each block's forward again (its norms too) before its gradient; the
     backward kernel runs once for every norm of the forward."""
-    per_forward = cfg.num_layers * norms_per_layer(cfg, bool(
-        cfg.encoder_layers)) + 1
-    recompute = per_forward - 1 if cfg.remat != "none" else 0
+    blocks = cfg.num_layers * norms_per_layer(cfg, bool(cfg.encoder_layers))
+    if cfg.encoder_layers:
+        blocks += cfg.encoder_layers * norms_per_layer(cfg)
+    per_forward = blocks + 1 + (1 if cfg.encoder_layers else 0)
+    recompute = blocks if cfg.remat != "none" else 0
     return {"rmsnorm": steps * (per_forward + recompute),
             "rmsnorm_bwd": steps * per_forward}
 
@@ -1751,6 +1816,24 @@ def model_flops_per_step(cfg, params, tokens: int, seq_len: int) -> float:
     attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim() \
         * seq_len
     return tokens * (6 * n_mm + attn)
+
+
+def profile_busy(prof, wall: float) -> dict:
+    """A profiled span's device busy time (every kernel's and copy's self
+    device time; CUPTI's "Command Buffer Full" marks the host waiting on
+    a full launch queue, not device work), its idle share of ``wall``
+    (None when the profiler recorded no device time) and the top kernels."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev / 1e6
+    queue_full = by_kernel.pop("Command Buffer Full", 0.0)
+    busy = sum(by_kernel.values())
+    return {"queue_full_s": queue_full, "prof_wall": wall, "busy": busy,
+            "idle": 1 - busy / wall if by_kernel else None,
+            "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
@@ -1840,19 +1923,7 @@ def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
     steady = float(np.median(out["step_ms"]))
     out["tok_per_s"] = p["batch"] * p["seq_len"] / steady * 1e3
     out["mfu"] = out["flops"] / (steady / 1e3) / BF16_OPS_PER_S
-    # busy: every kernel's and copy's device time; CUPTI's "Command Buffer
-    # Full" marks the host waiting on a full launch queue, not device work
-    by_kernel = {}
-    for ev in prof["p"].key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev / 1e6
-    out["queue_full_s"] = by_kernel.pop("Command Buffer Full", 0.0)
-    out["prof_wall"] = prof["wall"]
-    out["busy"] = sum(by_kernel.values())
-    out["idle"] = 1 - out["busy"] / prof["wall"] if by_kernel else None
-    out["top"] = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    out.update(profile_busy(prof["p"], prof["wall"]))
 
     t0 = time.perf_counter()
     tree, step = load_checkpoint(ckpt_dir, device="cpu")
@@ -2001,30 +2072,35 @@ def rmsnorm_bwd_numbers(rmsnorm, x, scale, dy) -> dict:
     and by profiler (all device time of a call), the plain version, the
     library's gradient (``torch.autograd.grad`` through ``F.rms_norm``,
     its backward alone) and the bound: x, dy and dx once, the scale and
-    dscale once, over the card's memory rate."""
+    dscale once, over the card's memory rate. Each call takes the next of
+    enough copies of x, the scale and dy to pass the L2 (``_copies``)."""
     N, d = x.shape
     nbytes = 3 * N * d * x.element_size() + 2 * d * 4
     ops = 10 * N * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    xr = x.detach().clone().requires_grad_()
-    w = scale.to(x.dtype).requires_grad_()
-    y = torch.nn.functional.rms_norm(xr, (d,), w, 1e-6)
-
-    def kernel():
-        return rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
-
-    return {
+    sets = _copies(nbytes, x, scale, dy)
+    kernel = _rotating(rmsnorm.rmsnorm_bwd_cuda, sets)
+    graphs = []
+    for xi, si, dyi in sets:
+        xr = xi.detach().clone().requires_grad_()
+        w = si.to(xi.dtype).requires_grad_()
+        graphs.append((torch.nn.functional.rms_norm(xr, (d,), w, 1e-6),
+                       (xr, w), dyi))
+    out = {
         "shape": [N, d], "dtype": str(x.dtype).replace("torch.", ""),
         "ms": _time_ms(kernel),
         "device_ms": _busy_ms(kernel, reps=20),
-        "plain_ms": _time_ms(lambda: rmsnorm.rmsnorm_bwd_torch(x, scale, dy),
+        "plain_ms": _time_ms(_rotating(rmsnorm.rmsnorm_bwd_torch, sets),
                              reps=50),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": _time_ms(lambda: torch.autograd.grad(
-            y, (xr, w), dy, retain_graph=True), reps=50),
+        "library_ms": _time_ms(_rotating(
+            lambda y, inputs, dyi: torch.autograd.grad(
+                y, inputs, dyi, retain_graph=True), graphs), reps=50),
     }
+    del sets, graphs
+    return out
 
 
 def print_training(label: str, p: dict, tr: dict) -> None:
@@ -2054,6 +2130,315 @@ def print_training(label: str, p: dict, tr: dict) -> None:
           f"{tr['queue_full_s']:.4f} s; top kernels by device time: "
           + "; ".join(
               f"{name[:60]} {t:.4f} s" for name, t in tr["top"]))
+
+
+# ------------------------------------------- scheduler-driven training
+@contextlib.contextmanager
+def offer_calls():
+    """Count the offer path's kernel-wrapper calls made in the block:
+    ``pricing.price_bundle_batch`` (every bundle, the per-slot form's
+    too) and the DP's ``minplus_sweep_host``. On a CPU ledger they run
+    the plain versions; on a CUDA ledger each call is one launch."""
+    from repro_torch.core import dp
+    from repro_torch.kernels import pricing
+    calls = {"price_bundle": 0, "minplus_sweep": 0}
+    bundle, sweep = pricing.price_bundle_batch, dp.minplus_sweep_host
+
+    def counted_bundle(*args, **kw):
+        calls["price_bundle"] += 1
+        return bundle(*args, **kw)
+
+    def counted_sweep(*args, **kw):
+        calls["minplus_sweep"] += 1
+        return sweep(*args, **kw)
+
+    pricing.price_bundle_batch = counted_bundle
+    dp.minplus_sweep_host = counted_sweep
+    try:
+        yield calls
+    finally:
+        pricing.price_bundle_batch, dp.minplus_sweep_host = bundle, sweep
+
+
+def cluster_schedules(cluster, pricing, minplus, ids, slots: int,
+                      jobs: int) -> dict:
+    """``cluster.schedule`` on the card and on the CPU: identical
+    decisions and utility, and on the card each offer kernel launched
+    exactly as often as the CPU run calls its wrapper."""
+    pricing.LAUNCHES = minplus.LAUNCHES = 0
+    t0 = time.perf_counter()
+    gpu = cluster.schedule(ids, slots, jobs, "cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = _launches(pricing, minplus)
+    t0 = time.perf_counter()
+    with offer_calls() as calls:
+        cpu = cluster.schedule(ids, slots, jobs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _require_launches(launches, "the cluster schedule")
+    if launches != calls:
+        raise AssertionError(f"cluster schedule launches {launches} != the "
+                             f"cpu run's calls {calls}")
+    if decision_trace(gpu.records) != decision_trace(cpu.records):
+        raise AssertionError("cluster schedule: cuda and cpu decided "
+                             "differently")
+    if gpu.total_utility != cpu.total_utility:
+        raise AssertionError(f"cluster utility {gpu.total_utility!r} != "
+                             f"{cpu.total_utility!r}")
+    return dict(res=gpu, launches=launches, offers=len(gpu.records),
+                cuda_s=gpu_s, cpu_s=cpu_s)
+
+
+def _job_launches(res, cfg_for, steps_per_slot: int) -> dict:
+    """rmsnorm's exact launches over every admitted job's steps."""
+    want = {"rmsnorm": 0, "rmsnorm_bwd": 0}
+    for r in res.admitted:
+        n = expected_train_launches(cfg_for(r.job.arch),
+                                    len(r.schedule.slots) * steps_per_slot)
+        for k in want:
+            want[k] += n[k]
+    return want
+
+
+def cluster_example(cluster, pricing, minplus, rmsnorm,
+                    p: dict = CLUSTER_POINT) -> dict:
+    """The example's own settings through ``cluster.schedule`` and
+    ``cluster.run_jobs`` on the card and on the CPU: identical decisions,
+    exact launches of the four kernels, and every job's loss in every
+    slot within 1e-5. The CPU run starts from the card run's initial
+    params (``state_dict``) and trains on its batches: ``model.init``
+    and ``concrete_batch`` draw from a generator on their device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import concrete_batch
+
+    def cfg_for(aid):
+        return get_config(aid, reduced=True)
+
+    sched = cluster_schedules(cluster, pricing, minplus, None, p["slots"],
+                              p["jobs"])
+    res = sched["res"]
+    initial, batches = {}, {}
+
+    def init_gpu(job_id, model, device):
+        params = model.init(job_id, device)
+        initial[job_id] = (type(params), {
+            k: v.cpu() for k, v in params.state_dict().items()})
+        return params
+
+    def batch_gpu(cfg, shape, seed, device):
+        batch = concrete_batch(cfg, shape, seed=seed, device=device)
+        batches[seed] = {k: v.cpu() for k, v in batch.items()}
+        return batch
+
+    def init_cpu(job_id, model, device):
+        cls, state = initial[job_id]
+        params = cls(model.cfg, device)
+        params.load_state_dict(state)
+        return params
+
+    def batch_cpu(cfg, shape, seed, device):
+        return batches[seed]
+
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    gpu = cluster.run_jobs(res, cfg_for, p["slots"], p["steps_per_slot"],
+                           "cuda", init=init_gpu, batch_for=batch_gpu)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
+    t0 = time.perf_counter()
+    cpu = cluster.run_jobs(res, cfg_for, p["slots"], p["steps_per_slot"],
+                           "cpu", init=init_cpu, batch_for=batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    want = _job_launches(res, cfg_for, p["steps_per_slot"])
+    if launches != want:
+        raise AssertionError(f"cluster runtime launches {launches} != {want}")
+    gap = 0.0
+    for jid, losses in cpu.items():
+        got = gpu[jid]
+        if len(got) != len(losses) or not all(np.isfinite(got)):
+            raise AssertionError(f"job {jid}: losses {got} vs {losses}")
+        gap = max(gap, *(abs(a - b) for a, b in zip(got, losses)))
+    if not gap <= 1e-5:
+        raise AssertionError(f"cluster losses cuda {gpu} vs cpu {cpu}: max "
+                             f"gap {gap}")
+    return dict(sched, losses=gpu, cpu_losses=cpu, loss_gap=gap,
+                train_launches=launches, train_cuda_s=gpu_s,
+                train_cpu_s=cpu_s,
+                steps=sum(len(r.schedule.slots) for r in res.admitted)
+                * p["steps_per_slot"])
+
+
+def cluster_full_width(cluster, pricing, minplus, rmsnorm,
+                       p: dict = CLUSTER_FULL_POINT) -> dict:
+    """Gemma-7B and Qwen3-32B jobs scheduled on the card and trained there
+    at full width, each cut to ``p["layers"]`` layers (float32 params and
+    AdamW moments, bf16 compute, remat "full"). Before anything is
+    allocated, each admitted job's state (params, gradients and two
+    moments, 16 B a param) is reckoned from ``param_count``, and the
+    largest set of jobs sharing a slot must fit ``p["state_limit_gb"]``.
+    Per job: its steps' times (CUDA events, each step's own; the
+    ``profile_step``-th step profiled for the idle share), peak memory
+    (reset at the job's build), the state measured and finite losses;
+    launches exact."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import concrete_batch
+
+    def cfg_for(aid):
+        return dataclasses.replace(get_config(aid), num_layers=p["layers"])
+
+    sched = cluster_schedules(cluster, pricing, minplus, list(p["archs"]),
+                              p["slots"], p["jobs"])
+    res = sched["res"]
+    jobs = {}
+    for r in res.admitted:
+        n = cfg_for(r.job.arch).param_count()
+        jobs[r.job.job_id] = dict(
+            arch=r.job.arch, slots=sorted(r.schedule.slots),
+            workers=[r.schedule.slots[t].total_workers()
+                     for t in sorted(r.schedule.slots)],
+            params=n, state_gb=16 * n / 1e9, steps=[], open=None,
+            prof=None)
+    shared = max(sum(j["state_gb"] for j in jobs.values() if t in j["slots"])
+                 for t in range(p["slots"]))
+    print("cluster full width: state reckoned from param_count (f32 "
+          "params, grads, 2 moments): " + "; ".join(
+              f"job {jid} {j['arch']} {j['params']} params "
+              f"{j['state_gb']:.2f} GB in slots {j['slots']} with "
+              f"{j['workers']} workers" for jid, j in jobs.items())
+          + f"; the largest set of jobs sharing a slot holds {shared:.2f} "
+          f"GB (limit {p['state_limit_gb']} GB)")
+    if shared > p["state_limit_gb"]:
+        raise AssertionError(f"jobs sharing a slot need {shared:.2f} GB")
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def close_step(j):
+        if j["open"] is not None:
+            j["steps"].append((j["open"], mark()))
+            j["open"] = None
+        if j["prof"] is not None:
+            torch.cuda.synchronize()
+            j["prof_wall"] = time.perf_counter() - j["prof_t0"]
+            j["prof"].stop()
+            j["busy"] = profile_busy(j["prof"], j["prof_wall"])
+            j["prof"] = None
+
+    def init(job_id, model, device):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(job_id, device)
+        torch.cuda.synchronize()
+        jobs[job_id]["init_s"] = time.perf_counter() - t0
+        return params
+
+    def batch_for(cfg, shape, seed, device):
+        j = jobs[seed // 1000]          # the runtime's seed: job_id * 1000 + ...
+        close_step(j)
+        if len(j["steps"]) == p["profile_step"]:
+            torch.cuda.synchronize()
+            j["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            j["prof"].start()
+            j["prof_t0"] = time.perf_counter()
+        j["tokens"] = shape.global_batch * shape.seq_len
+        j["open"] = mark()
+        return concrete_batch(cfg, shape, seed=seed, device=device)
+
+    def on_slot(t, rec, workers, state, metrics):
+        j = jobs[rec.job.job_id]
+        close_step(j)
+        if t == j["slots"][-1]:
+            torch.cuda.synchronize()
+            j["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            params = state["params"]
+            j["state_measured_gb"] = sum(
+                t_.numel() * t_.element_size()
+                for t_ in [*params.parameters(),
+                           *(q.grad for q in params.parameters()
+                             if q.grad is not None),
+                           *state["opt"]["m"].values(),
+                           *state["opt"]["v"].values()]) / 1e9
+
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    losses = cluster.run_jobs(res, cfg_for, p["slots"], p["steps_per_slot"],
+                              "cuda", init=init, batch_for=batch_for,
+                              on_slot=on_slot)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
+    want = _job_launches(res, cfg_for, p["steps_per_slot"])
+    if launches != want:
+        raise AssertionError(f"full-width cluster launches {launches} != "
+                             f"{want}")
+    for jid, j in jobs.items():
+        j["losses"] = losses[jid]
+        if not all(np.isfinite(j["losses"])):
+            raise AssertionError(f"job {jid} losses {j['losses']}")
+        j["step_ms"] = [a.elapsed_time(b) for a, b in j.pop("steps")][1:]
+        j["tok_per_s"] = j["tokens"] / float(np.median(j["step_ms"])) * 1e3
+        for k in ("open", "prof", "prof_t0"):
+            j.pop(k, None)
+    torch.cuda.empty_cache()
+    return dict(sched, jobs=jobs, train_launches=launches, wall=wall)
+
+
+def print_cluster(ex: dict, fw: dict, card: str) -> None:
+    p, q = CLUSTER_POINT, CLUSTER_FULL_POINT
+    res = ex["res"]
+    print(f"cluster (the example's settings: {p['slots']} slots, "
+          f"{p['jobs']} jobs over the ten archs, {p['steps_per_slot']} "
+          f"steps a slot, reduced f32 configs, TF32 off): admitted "
+          f"{len(res.admitted)}/{ex['offers']}, utility "
+          f"{res.total_utility!r}, decisions identical on cuda and cpu "
+          f"(schedule cuda {ex['cuda_s']:.4f} s, cpu {ex['cpu_s']:.4f} s); "
+          f"offer launches {ex['launches']} over {ex['offers']} offers = "
+          f"the cpu run's wrapper calls; {ex['steps']} train steps, rmsnorm "
+          f"launches {ex['train_launches']} exact; losses cuda vs cpu max "
+          f"abs gap {ex['loss_gap']:.3e} (limit 1e-5); train cuda "
+          f"{ex['train_cuda_s']:.2f} s, cpu {ex['train_cpu_s']:.2f} s")
+    for r in res.admitted:
+        print(f"  job {r.job.job_id} ({r.job.arch}): slots "
+              f"{sorted(r.schedule.slots)} workers "
+              f"{[r.schedule.slots[t].total_workers() for t in sorted(r.schedule.slots)]}"
+              f" losses {[round(v, 6) for v in ex['losses'][r.job.job_id]]}")
+    res = fw["res"]
+    print(f"cluster full width ({', '.join(q['archs'])} at published width, "
+          f"{q['layers']} layers, f32 params and moments, bf16 compute, "
+          f"remat full; {q['slots']} slots, {q['jobs']} jobs, "
+          f"{q['steps_per_slot']} steps a slot): admitted "
+          f"{len(res.admitted)}/{fw['offers']}, utility "
+          f"{res.total_utility!r}, identical on cpu; offer launches "
+          f"{fw['launches']}; rmsnorm launches {fw['train_launches']} "
+          f"exact; run wall {fw['wall']:.2f} s [{card}]")
+    for jid, j in fw["jobs"].items():
+        b = j.get("busy")
+        idle = "not measured (the profiler recorded no device time)" \
+            if b is None or b["idle"] is None else f"{b['idle']:.4f}"
+        print(f"  job {jid} ({j['arch']}, slots {j['slots']}, workers "
+              f"{j['workers']}, {j['tokens']} tokens a step): state "
+              f"reckoned {j['state_gb']:.4f} GB, measured "
+              f"{j['state_measured_gb']:.4f} GB, peak "
+              f"{j['peak_gb']:.4f} GB; init {j['init_s']:.3f} s; step ms "
+              f"(steps after the first) "
+              f"{[round(v, 3) for v in j['step_ms']]}, median "
+              f"{float(np.median(j['step_ms'])):.3f} ms = "
+              f"{j['tok_per_s']:.1f} tokens/s; losses "
+              f"{[round(v, 5) for v in j['losses']]}; step "
+              f"{q['profile_step']} profiled: idle share {idle}"
+              + (f", busy {b['busy']:.4f} s of {b['prof_wall']:.4f} s; top "
+                 "kernels " + "; ".join(f"{n[:50]} {t:.4f} s"
+                                        for n, t in b["top"][:5])
+                 if b else ""))
 
 
 # ------------------------------------------------------------ dry run
@@ -2172,6 +2557,7 @@ def main() -> int:
     from repro_torch.kernels import _build, minplus, pricing
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import rmsnorm
+    from repro_torch.launch import cluster
     from repro_torch.launch import sim as launch_sim
     from repro_torch.obs import trace
 
@@ -2305,6 +2691,16 @@ def main() -> int:
         rnew[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
         if f"4x{d}" not in rnew:
             rnew[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
+    # Qwen3-32B's QK-norm in the cluster phase: 16 x 64 tokens x 64 query
+    # heads and x 8 kv heads, rows of its head width 128, both directions
+    rqk, bqk = {}, {}
+    for N in (65536, 8192):
+        x = (torch.randn((N, 128), generator=gen) * 3).to(torch.bfloat16)
+        dy = torch.randn((N, 128), generator=gen).to(torch.bfloat16)
+        scale = (torch.randn((128,), generator=gen) + 1).cuda()
+        rqk[f"{N}x128"] = rmsnorm_numbers(rmsnorm, x.cuda(), scale)
+        bqk[f"{N}x128"] = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale,
+                                              dy.cuda())
     # the training shape: Gemma-7B's 2 x 4096 rows, forward and backward
     x = (torch.randn((8192, 3072), generator=gen) * 3).to(torch.bfloat16)
     dy = torch.randn((8192, 3072), generator=gen).to(torch.bfloat16)
@@ -2312,13 +2708,14 @@ def main() -> int:
     scale = (torch.randn((3072,), generator=gen) + 1).cuda()
     bnum_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda())
     del x, dy
-    print(f"rmsnorm_bwd {bnum_train['shape']} {bnum_train['dtype']}: device "
-          f"{bnum_train['device_ms']} ms (both passes), events "
-          f"{bnum_train['ms']} ms, {bnum_train['bound_ms']} ms "
-          f"{bnum_train['bound_by']} bound; plain {bnum_train['plain_ms']} "
-          f"ms, autograd through F.rms_norm {bnum_train['library_ms']} ms")
+    for f in (bnum_train, *bqk.values()):
+        print(f"rmsnorm_bwd {f['shape']} {f['dtype']}: device "
+              f"{f['device_ms']} ms (both passes), events {f['ms']} ms, "
+              f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
+              f"{f['plain_ms']} ms, autograd through F.rms_norm "
+              f"{f['library_ms']} ms")
     for f in (rnum, rdec, rtrain, rmoe, rmoe_dec, *rmla.values(),
-              *rnew.values()):
+              *rnew.values(), *rqk.values()):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -2395,6 +2792,15 @@ def main() -> int:
           f"the card {tp['launches']}; cuda {tp['cuda_s']:.2f} s, cpu "
           f"{tp['cpu_s']:.2f} s")
     print(f"training phase wall {time.perf_counter() - t0:.2f} s")
+
+    # 8a''. scheduler-driven training (launch.cluster): the example's own
+    # settings on cuda and on cpu, then Gemma-7B and Qwen3-32B jobs at
+    # full width on the card
+    t0 = time.perf_counter()
+    ex = cluster_example(cluster, pricing, minplus, rmsnorm)
+    fw = cluster_full_width(cluster, pricing, minplus, rmsnorm)
+    print_cluster(ex, fw, card)
+    print(f"cluster phase wall {time.perf_counter() - t0:.2f} s")
 
     # 8a'. the dry run: the production plans at full width and depth on
     # fake 256- and 512-GPU meshes, and the one-card plan of the training
@@ -2573,6 +2979,8 @@ def main() -> int:
          "sim_launches": on["launches"]["price_bundle"],
          **{f"{k}_launches": v["launches"]["price_bundle"]
             for k, v in paths.items()},
+         "cluster_launches": {"example": ex["launches"]["price_bundle"],
+                              "full_width": fw["launches"]["price_bundle"]},
          "max_abs_err": err["price_bundle"], **bnum},
         {"name": "minplus_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/minplus_sweep.cu",
@@ -2581,6 +2989,8 @@ def main() -> int:
          "sim_launches": on["launches"]["minplus_sweep"],
          **{f"{k}_launches": v["launches"]["minplus_sweep"]
             for k, v in paths.items()},
+         "cluster_launches": {"example": ex["launches"]["minplus_sweep"],
+                              "full_width": fw["launches"]["minplus_sweep"]},
          "max_abs_err": err["minplus_sweep"], **snum},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -2597,14 +3007,21 @@ def main() -> int:
          "mla_norms": rmla, "ssm_hybrid_encdec_norms": rnew,
          "gemma_7b_train": {"launches": tr["launches"]["rmsnorm"],
                             "parity_launches": tp["launches"]["rmsnorm"],
-                            "train_shape": rtrain}},
+                            "train_shape": rtrain},
+         "cluster": {"example_launches": ex["train_launches"]["rmsnorm"],
+                     "full_width_launches": fw["train_launches"]["rmsnorm"],
+                     "qwen3_qk_norm": rqk}},
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:35",
          "gradient_of": "src/repro/models/layers.py:35 (jax.grad)",
          "launches": tr["launches"]["rmsnorm_bwd"],
          "parity_launches": tp["launches"]["rmsnorm_bwd"],
-         "max_abs_err": berr, **bnum_train},
+         "max_abs_err": berr, **bnum_train,
+         "cluster": {"example_launches": ex["train_launches"]["rmsnorm_bwd"],
+                     "full_width_launches":
+                     fw["train_launches"]["rmsnorm_bwd"],
+                     "qwen3_qk_norm": bqk}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",

@@ -19,22 +19,24 @@ from ..optim import AdamWConfig, adamw_init, adamw_update, \
     linear_warmup_cosine
 
 
+def train_state(params: torch.nn.Module, opt_cfg: AdamWConfig) -> Dict:
+    """The train state over ``params``: zero AdamW state beside them."""
+    return {"params": params,
+            "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+
+
 def make_train_state(model: Model, seed: int, opt_cfg: AdamWConfig,
                      device=None) -> Dict:
     """Random params from ``seed`` on ``device`` (None = the CUDA card)
     and zero AdamW state beside them."""
-    params = model.init(seed, device)
-    return {"params": params,
-            "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+    return train_state(model.init(seed, device), opt_cfg)
 
 
 def abstract_train_state(model: Model, opt_cfg: AdamWConfig) -> Dict:
     """The train state on the meta device: params (``Model.init_abstract``)
     and AdamW's moments and step counter, every shape and dtype, no
     storage."""
-    params = model.init_abstract()
-    return {"params": params,
-            "opt": adamw_init(dict(params.named_parameters()), opt_cfg)}
+    return train_state(model.init_abstract(), opt_cfg)
 
 
 def make_train_step(

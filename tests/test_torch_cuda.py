@@ -14,8 +14,9 @@ build, and a reduced train step on the card matching the CPU's; one full-width M
 full-width MLA layer of each MLA config, one Hymba block and one
 SeamlessM4T decoder block computing as the CPU does; the dry run's
 one-card plan of a reduced train step counting the real step's FLOPs
-and argument bytes. Skipped where there
-is no card; on one, run ``PYTHONPATH=src python -m pytest -q
+and argument bytes; the scheduler-driven training runtime
+(``launch.cluster``) deciding and training as the CPU does. Skipped
+where there is no card; on one, run ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_cuda.py``."""
 from __future__ import annotations
 
@@ -1113,3 +1114,63 @@ def test_one_card_plan_equals_a_step_on_the_card(cuda):
             *batch.values()]
     assert plan["memory"]["argument_bytes"] == sum(
         t.numel() * t.element_size() for t in held)
+
+
+def test_cluster_runtime_on_the_card_matches_cpu(cuda, monkeypatch):
+    """``launch.cluster`` at ``tests/test_examples.py``'s point (4 slots,
+    4 jobs, one step a slot) on the card and on the CPU: the schedule on a
+    CUDA ledger decides as the CPU's and launches both offer kernels; the
+    admitted jobs (reduced DeepSeek-V2, SeamlessM4T and Mamba-2, float32,
+    TF32 off) train on the card from the same initial params and batches
+    as on the CPU, each slot's loss within 1e-5, with rmsnorm's forward
+    and backward launched once per norm a step (9, 12 and 5 norms)."""
+    from repro_torch.launch import cluster
+    from repro_torch.models import concrete_batch
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    pricing.LAUNCHES = minplus.LAUNCHES = 0
+    res = cluster.schedule(None, 4, 4, cuda)
+    assert pricing.LAUNCHES > 0 and minplus.LAUNCHES > 0
+    cpu_res = cluster.schedule(None, 4, 4, "cpu")
+
+    def decided(r):
+        return [(x.job.job_id, x.admitted,
+                 None if x.schedule is None else
+                 {t: (a.workers, a.ps) for t, a in x.schedule.slots.items()})
+                for x in r.records]
+
+    assert decided(res) == decided(cpu_res)
+    assert [r.job.arch for r in res.admitted] == [
+        "deepseek-v2-236b", "seamless-m4t-medium", "mamba2-780m"]
+    initial, batches = {}, {}
+
+    def init_gpu(job_id, model, device):
+        params = model.init(job_id, device)
+        initial[job_id] = (type(params), {
+            k: v.cpu() for k, v in params.state_dict().items()})
+        return params
+
+    def batch_gpu(cfg, shape, seed, device):
+        batch = concrete_batch(cfg, shape, seed=seed, device=device)
+        batches[seed] = {k: v.cpu() for k, v in batch.items()}
+        return batch
+
+    def init_cpu(job_id, model, device):
+        cls, state = initial[job_id]
+        params = cls(model.cfg, device)
+        params.load_state_dict(state)
+        return params
+
+    def cfg_for(aid):
+        return get_config(aid, reduced=True)
+
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    got = cluster.run_jobs(res, cfg_for, 4, 1, cuda, init=init_gpu,
+                           batch_for=batch_gpu)
+    assert (rmsnorm.LAUNCHES, rmsnorm.LAUNCHES_BWD) == (53, 53)
+    want = cluster.run_jobs(cpu_res, cfg_for, 4, 1, "cpu", init=init_cpu,
+                            batch_for=lambda cfg, shape, seed, device:
+                            batches[seed])
+    assert sorted(got) == sorted(want) == [0, 1, 3]
+    for jid, losses in want.items():
+        np.testing.assert_allclose(got[jid], losses, rtol=0, atol=1e-5)

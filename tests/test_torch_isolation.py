@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "repro_torch.parallel.sharding",
                  "repro_torch.parallel.context", "repro_torch.roofline",
                  "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.train"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.train",
+                 "repro_torch.launch.cluster"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
