@@ -55,8 +55,9 @@ paths:
     on the CPU from the same weights, requiring identical greedy tokens;
   * the training path: rmsnorm's backward kernel against its plain
     version on the card (the training shape (8192, 3072), decode rows,
-    d = 1, an odd d, d = 16384, narrow rows, unaligned pointers; twice
-    bit for bit), then Gemma-7B at full width cut to 4 of its 28 layers
+    d = 1, an odd d, d = 16384, narrow rows, the partition's edges,
+    unaligned pointers; twice bit for bit at (8192, 3072) and at Qwen3's
+    QK-norm rows), then Gemma-7B at full width cut to 4 of its 28 layers
     (float32 params and AdamW moments, bfloat16 compute, remat "full")
     trained 8 steps of SyntheticLM batches of 2 x 4096 tokens through
     ``Trainer.run``: every loss finite and the last below the first, a
@@ -154,8 +155,8 @@ ranks under ``mla_norms`` and at the SSM, hybrid and enc-dec widths under
 kernels' launches on the sim path beside the static path's, and on each
 of the chaos, recover, elastic, service and cluster paths), and as its
 last line ``{"ok": true, "device": {...}}``. Every phase raises on
-failure; the script exits nonzero without a result line when there is
-no card or no port next to it.
+failure; the script exits 2 without a result line when there is no card
+or no port (``src/repro_torch``) next to it.
 """
 from __future__ import annotations
 
@@ -1403,21 +1404,61 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     return out
 
 
+#: the runtime and driver calls that launch a kernel, as the profiler
+#: names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+
+
+def _kernel_counts(prof) -> tuple:
+    """(launch calls, kernels run, device us) in a profiled session: the
+    host's calls in ``LAUNCH_CALLS`` (a driver call made inside a runtime
+    call on its thread is that call's, and not counted again), the
+    device's kernel events (copies and fills aside) and the time of
+    every device event (a host op that launched a kernel also carries
+    that kernel's time, so only the device's own events are summed)."""
+    from torch.autograd import DeviceType
+    calls, ran, us = [], 0, 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in LAUNCH_CALLS:
+            calls.append(ev)
+        elif ev.device_type == DeviceType.CUDA:
+            us += ev.time_range.end - ev.time_range.start
+            if not ev.name.startswith(("Memcpy", "Memset")):
+                ran += 1
+    runtime = [ev for ev in calls if ev.name.startswith("cuda")]
+
+    def nested(ev) -> bool:
+        return any(r.thread == ev.thread
+                   and r.time_range.start <= ev.time_range.start
+                   and ev.time_range.end <= r.time_range.end
+                   for r in runtime)
+
+    launched = len(runtime) + sum(
+        1 for ev in calls if not ev.name.startswith("cuda") and not nested(ev))
+    return launched, ran, us
+
+
 def _busy_ms(fn, reps: int = 5) -> float:
     """Device time per call of everything ``fn`` launches: the profiler's
-    kernel time over ``reps`` calls (after one unprofiled call); None
-    when the profiler records no device time."""
+    device time over ``reps`` calls (after one unprofiled call). The
+    session must hold a kernel event for every launch call it saw; a
+    session that lost one is run once more, and None is returned when
+    that one loses a launch too, or the profiler records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-             for ev in prof.key_averages())
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched, ran, us = _kernel_counts(prof)
+        if launched > 0 and ran == launched and us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def ssd_share(cfg, p: dict, batches: int, busy_s: float) -> dict:
@@ -1755,12 +1796,18 @@ def _bwd_err(rmsnorm, x, scale, dy, what: str) -> float:
                              atol=1e-5 * float(want_ds.abs().max())))
 
 
+#: shapes at which two launches of the backward must agree bit for bit:
+#: Gemma-7B's training rows and Qwen3-32B's QK-norm rows
+BWD_TWICE = ((8192, 3072), (65536, 128), (8192, 128))
+
+
 def check_rmsnorm_bwd(rmsnorm) -> float:
     """The backward kernel against its plain version on the card at the
     training shape (8192, 3072), its decode rows, d = 1, an odd d, the
-    widest row, MoE and narrow rows, both dtypes, and with x and dy off a
-    16-byte boundary; two launches bit for bit. Returns the max abs
-    error."""
+    widest row, MoE and narrow rows, the partition's edges (no row, one
+    row, fewer rows than a block's lanes, a part-full last block), both
+    dtypes, and with x and dy off a 16-byte boundary; two launches bit
+    for bit at ``BWD_TWICE``. Returns the max abs error."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     err = 0.0
@@ -1768,25 +1815,35 @@ def check_rmsnorm_bwd(rmsnorm) -> float:
                  (1, 3072), (513, 256), (65536, 128), (4096, 4096),
                  # the cluster phase's full-width and reduced rows
                  (8192, 128), (1024, 5120), (1024, 3072), (1024, 256),
-                 (4096, 32), (1024, 64), (1024, 32)]:
+                 (4096, 32), (1024, 64), (1024, 32),
+                 # Command R+'s d_model; the partition's edges
+                 (1024, 12288), (1, 128), (5, 128), (8191, 128),
+                 (65535, 128), (8191, 3072), (0, 128), (0, 3072)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
             dy = torch.randn((N, d), generator=gen).to(dt).to(dev)
-            err = max(err, _bwd_err(rmsnorm, x, scale, dy,
-                                    f"rmsnorm_bwd ({N}, {d}) {dt}"))
-            if (N, d) == (8192, 3072):
+            what = f"rmsnorm_bwd ({N}, {d}) {dt}"
+            if N == 0:
+                dx, ds = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+                if dx.shape != (0, d) or bool(ds.ne(0).any()):
+                    raise AssertionError(f"{what}: not an empty dx and a "
+                                         f"zero dscale")
+                continue
+            err = max(err, _bwd_err(rmsnorm, x, scale, dy, what))
+            if (N, d) in BWD_TWICE:
                 a = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
                 b = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
                 for u, v in zip(a, b):
-                    _equal(u.float(), v.float(), "rmsnorm_bwd twice")
-    N, d = 40, 3072
-    for dt in (torch.float32, torch.bfloat16):
-        x, dy = ((torch.randn((N * d + 1,), generator=gen) * 3).to(dt)
-                 .to(dev)[1:].view(N, d) for _ in range(2))
-        scale = (torch.randn((d,), generator=gen) + 1).to(dev)
-        err = max(err, _bwd_err(rmsnorm, x, scale, dy,
-                                f"rmsnorm_bwd unaligned {dt}"))
+                    _equal(u.float(), v.float(), f"{what} twice")
+    for N, d in ((40, 3072), (70000, 24)):   # the block and narrow paths
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = ((torch.randn((N * d + 1,), generator=gen) * 3).to(dt)
+                     .to(dev)[1:].view(N, d) for _ in range(2))
+            scale = (torch.randn((d,), generator=gen) + 1).to(dev)
+            err = max(err, _bwd_err(rmsnorm, x, scale, dy,
+                                    f"rmsnorm_bwd unaligned ({N}, {d}) "
+                                    f"{dt}"))
     torch.cuda.synchronize()
     return err
 
@@ -2067,13 +2124,33 @@ def train_parity(rmsnorm, p: dict = TRAIN_PARITY_POINT) -> dict:
     return res
 
 
-def rmsnorm_bwd_numbers(rmsnorm, x, scale, dy) -> dict:
-    """The backward kernel's times at x (N, d): both passes by events
-    and by profiler (all device time of a call), the plain version, the
-    library's gradient (``torch.autograd.grad`` through ``F.rms_norm``,
-    its backward alone) and the bound: x, dy and dx once, the scale and
-    dscale once, over the card's memory rate. Each call takes the next of
-    enough copies of x, the scale and dy to pass the L2 (``_copies``)."""
+def bwd_device_times(shapes) -> dict:
+    """The backward kernel's device time (both passes) and the library
+    backward's at each bf16 (N, d) of ``shapes``, by profiler, from a
+    fresh process (``scripts/rmsnorm_bwd_ab.py``): in this one, every
+    profiler session after the first large one loses launches, and
+    ``_busy_ms`` then reads None."""
+    root = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    run = subprocess.run(
+        [sys.executable, str(root / "scripts" / "rmsnorm_bwd_ab.py"),
+         "--src", str(root / "src"),
+         "--shapes", ",".join(f"{N}x{d}" for N, d in shapes)],
+        capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"rmsnorm_bwd_ab.py failed:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def rmsnorm_bwd_numbers(rmsnorm, x, scale, dy, device: dict) -> dict:
+    """The backward kernel's times at x (N, d): both passes by events,
+    the plain version, the library's gradient (``torch.autograd.grad``
+    through ``F.rms_norm``, its backward alone; the events time also
+    counts autograd's host work) and the bound: x, dy and dx once, the
+    scale and dscale once, over the card's memory rate; the two device
+    times by profiler come in ``device`` (``bwd_device_times``). Each
+    call takes the next of enough copies of x, the scale and dy to pass
+    the L2 (``_copies``)."""
     N, d = x.shape
     nbytes = 3 * N * d * x.element_size() + 2 * d * 4
     ops = 10 * N * d
@@ -2090,15 +2167,16 @@ def rmsnorm_bwd_numbers(rmsnorm, x, scale, dy) -> dict:
     out = {
         "shape": [N, d], "dtype": str(x.dtype).replace("torch.", ""),
         "ms": _time_ms(kernel),
-        "device_ms": _busy_ms(kernel, reps=20),
+        "device_ms": device["device_ms"],
         "plain_ms": _time_ms(_rotating(rmsnorm.rmsnorm_bwd_torch, sets),
                              reps=50),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": _time_ms(_rotating(
-            lambda y, inputs, dyi: torch.autograd.grad(
-                y, inputs, dyi, retain_graph=True), graphs), reps=50),
     }
+    library = _rotating(lambda y, inputs, dyi: torch.autograd.grad(
+        y, inputs, dyi, retain_graph=True), graphs)
+    out["library_ms"] = _time_ms(library, reps=50)
+    out["library_device_ms"] = device["library_device_ms"]
     del sets, graphs
     return out
 
@@ -2552,7 +2630,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: the port's package is not at {src}/repro_torch",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
     import repro_torch as rt
     from repro_torch.kernels import _build, minplus, pricing
     from repro_torch.kernels import flash_attention as flash
@@ -2693,6 +2776,7 @@ def main() -> int:
             rnew[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
     # Qwen3-32B's QK-norm in the cluster phase: 16 x 64 tokens x 64 query
     # heads and x 8 kv heads, rows of its head width 128, both directions
+    fresh = bwd_device_times(((65536, 128), (8192, 128), (8192, 3072)))
     rqk, bqk = {}, {}
     for N in (65536, 8192):
         x = (torch.randn((N, 128), generator=gen) * 3).to(torch.bfloat16)
@@ -2700,20 +2784,23 @@ def main() -> int:
         scale = (torch.randn((128,), generator=gen) + 1).cuda()
         rqk[f"{N}x128"] = rmsnorm_numbers(rmsnorm, x.cuda(), scale)
         bqk[f"{N}x128"] = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale,
-                                              dy.cuda())
+                                              dy.cuda(), fresh[f"{N}x128"])
     # the training shape: Gemma-7B's 2 x 4096 rows, forward and backward
     x = (torch.randn((8192, 3072), generator=gen) * 3).to(torch.bfloat16)
     dy = torch.randn((8192, 3072), generator=gen).to(torch.bfloat16)
     rtrain = rmsnorm_numbers(rmsnorm, x.cuda(), torch.ones(3072).cuda())
     scale = (torch.randn((3072,), generator=gen) + 1).cuda()
-    bnum_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda())
+    bnum_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda(),
+                                     fresh["8192x3072"])
     del x, dy
     for f in (bnum_train, *bqk.values()):
         print(f"rmsnorm_bwd {f['shape']} {f['dtype']}: device "
-              f"{f['device_ms']} ms (both passes), events {f['ms']} ms, "
+              f"{f['device_ms']} ms (both passes, a fresh process), events "
+              f"{f['ms']} ms, "
               f"{f['bound_ms']} ms {f['bound_by']} bound; plain "
               f"{f['plain_ms']} ms, autograd through F.rms_norm "
-              f"{f['library_ms']} ms")
+              f"{f['library_ms']} ms, its device time "
+              f"{f['library_device_ms']} ms")
     for f in (rnum, rdec, rtrain, rmoe, rmoe_dec, *rmla.values(),
               *rnew.values(), *rqk.values()):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "

@@ -21,8 +21,10 @@ and its gradient, ``(dx, dscale)`` for an upstream ``dy``:
 in float32, dx rounded once into x's dtype and dscale into scale's:
 
   * ``rmsnorm_bwd_cuda``  — the hand-written CUDA kernel
-    (``csrc/rmsnorm_bwd.cu``: the forward's row layout, dscale from
-    per-lane partial sums added in a fixed order, no atomics);
+    (``csrc/rmsnorm_bwd.cu``: the forward's row layout over a grid that
+    follows the rows (``rmsnorm_bwd_slabs``), the next row in flight
+    while one is reduced, dscale from one partial row a block added in a
+    fixed order, no atomics);
   * ``rmsnorm_bwd_torch`` — its plain torch version, written out by hand
     (what ``jax.grad`` of the reference's ``layers.rmsnorm`` computes).
 
@@ -58,17 +60,32 @@ _BWD_ENTRIES = {torch.float32: "rmsnorm_bwd_f32_launch",
                 torch.bfloat16: "rmsnorm_bwd_bf16_launch"}
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6
                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p] + [ctypes.c_int] * 5
-                 + [ctypes.c_longlong])
+                    ctypes.c_void_p] + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong, ctypes.c_int])
 
 #: the widest row the kernel takes, on every path
 MAX_D = 16384
 MAX_THREADS = 1024
 #: block size when a row takes at most a warp
 NARROW_THREADS = 256
-#: lanes (a row's threads, walking a slab of rows) the backward aims for:
-#: its dscale partial is at most this many rows of d float32
-BWD_LANES = 512
+#: the H100's streaming multiprocessors. The backward sizes its grid for
+#: them as a named constant, never from the card it runs on, so its
+#: partition (and the order dscale is summed in) is a function of the
+#: shape alone
+H100_SMS = 132
+#: blocks of ``NARROW_THREADS`` the backward gives an SM on narrow rows:
+#: the narrow kernel takes 76 registers a thread, so an SM holds 3 at
+#: once: the grid is one wave
+BWD_NARROW_BLOCKS_PER_SM = 3
+#: threads the backward gives an SM on the block-per-row path: the kernel
+#: is built for 1024-thread blocks, so it takes at most 64 registers a
+#: thread, and an SM surely holds 1024 of them at once
+BWD_WIDE_THREADS_PER_SM = 1024
+#: the most rows the block-per-row path's shared-memory ring holds, and
+#: the shared memory an SM gives the rings of its blocks
+#: (csrc/rmsnorm_bwd.cu: kMaxStages, kRingBytes)
+BWD_RING_STAGES = 3
+BWD_RING_BYTES_PER_SM = 224 * 1024
 #: chunks a thread may hold, by elements per chunk (the kernel's
 #: instantiations: 16-byte chunks of 8 bf16 or 4 float32, or single
 #: elements); each path covers rows up to ``MAX_D``
@@ -169,18 +186,47 @@ def _entry(dtype: torch.dtype):
 
 
 class Slabs(NamedTuple):
-    """How the backward splits N rows: each of ``lanes`` lanes takes
-    ``slab`` consecutive rows (the last lane the rest)."""
+    """How the backward splits N rows. Each of ``blocks`` blocks holds
+    ``lanes`` lanes (a row's threads), and each lane takes ``slab`` rows:
+    lane j of block b the rows ``b * lanes * slab + j + k * lanes``,
+    k < ``slab``, that exist. Block b writes row b of the (blocks, d)
+    dscale partial. ``stages``: rows of the block-per-row path's
+    shared-memory ring, ``stages - 1`` of them in flight ahead of the
+    one reduced (0: plain loads)."""
     slab: int
     lanes: int
+    blocks: int
+    stages: int
 
 
-def rmsnorm_bwd_slabs(rows: int) -> Slabs:
-    """Rows a lane of the backward takes: the fewest that keep the lanes
-    at most ``BWD_LANES``. A function of N alone, so the order in which
-    dscale is summed is fixed for a shape."""
-    slab = max(1, -(-rows // BWD_LANES))
-    return Slabs(slab, -(-rows // slab))
+@functools.lru_cache(maxsize=None)
+def rmsnorm_bwd_slabs(rows: int, d: int, dtype: torch.dtype,
+                      aligned: bool) -> Slabs:
+    """The backward's partition of ``rows`` rows of width d, a function of
+    (rows, d, dtype, aligned) alone, so the order in which dscale is
+    summed is fixed for a shape. The grid aims at
+    ``BWD_NARROW_BLOCKS_PER_SM`` narrow blocks, or
+    ``BWD_WIDE_THREADS_PER_SM`` threads of block-per-row blocks, on each
+    of ``H100_SMS`` SMs: one wave, every block resident from the start.
+    A lane takes the fewest rows that keep the grid within that, so every
+    SM has rows in flight and the partial stays a few hundred rows. The
+    ring takes as many rows as fit, up to ``BWD_RING_STAGES``, in its
+    block's share of ``BWD_RING_BYTES_PER_SM``, where the chunks are 16
+    bytes; fewer than 2 rows is no ring."""
+    lay = rmsnorm_layout(d, dtype, aligned)
+    narrow = lay.tpr <= 32
+    if narrow:
+        lanes, per_sm = lay.threads // lay.tpr, BWD_NARROW_BLOCKS_PER_SM
+    else:
+        lanes = 1
+        per_sm = max(1, BWD_WIDE_THREADS_PER_SM // lay.threads)
+    slab = max(1, -(-rows // (H100_SMS * per_sm * lanes)))
+    blocks = -(-rows // (lanes * slab))
+    stages = 0
+    if not narrow and lay.width > 1:
+        fit = BWD_RING_BYTES_PER_SM // per_sm // (2 * d * dtype.itemsize)
+        stages = min(BWD_RING_STAGES, fit) if fit >= 2 else 0
+    return Slabs(slab, lanes, blocks, stages)
 
 
 def rmsnorm_bwd_torch(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
@@ -211,18 +257,20 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     s32 = scale.to(torch.float32).contiguous()
     dx = torch.empty_like(x)
     N, d = x.shape
-    slabs = rmsnorm_bwd_slabs(N)
-    partial = torch.empty((slabs.lanes, d), dtype=torch.float32,
-                          device=x.device)
-    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     xp, sp, gp, dp = x.data_ptr(), s32.data_ptr(), dy.data_ptr(), \
         dx.data_ptr()
-    lay = rmsnorm_layout(d, x.dtype, (xp | sp | gp | dp) % 16 == 0)
+    aligned = (xp | sp | gp | dp) % 16 == 0
+    lay = rmsnorm_layout(d, x.dtype, aligned)
+    slabs = rmsnorm_bwd_slabs(N, d, x.dtype, aligned)
+    partial = torch.empty((slabs.blocks, d), dtype=torch.float32,
+                          device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
     status = _build.entry("rmsnorm_bwd", _BWD_ENTRIES[x.dtype],
                           _BWD_ARGTYPES)(
         xp, sp, gp, dp, partial.data_ptr(), dscale.data_ptr(), N, d, eps,
         _build.stream_of(x), lay.threads, lay.tpr, lay.nch,
-        int(lay.width > 1), slabs.slab, slabs.lanes)
+        int(lay.width > 1), slabs.slab, slabs.lanes, slabs.blocks,
+        slabs.stages)
     _build.check(status, "rmsnorm backward kernel")
     LAUNCHES_BWD += 1
     return dx, dscale.to(scale.dtype)

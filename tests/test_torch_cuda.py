@@ -358,6 +358,11 @@ def _bwd_case(gen, N, d, dtype, cuda):
     (8192, 3072), (4, 3072), (300, 1), (33, 77), (16, 16384), (1, 3072),
     (513, 256), (65536, 128), (1000, 128), (96, 512), (3, 50), (7, 1536),
     (4096, 4096),
+    # the partition's edges: no row, one row, fewer rows than a block's
+    # lanes, a last block part full; Qwen3-32B's and Command R+'s d_model
+    # and the cluster's reduced rows
+    (0, 128), (0, 3072), (1, 128), (5, 128), (8191, 128), (65535, 128),
+    (8191, 3072), (1024, 5120), (1024, 12288), (1024, 256), (4096, 32),
 ])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
     gen = torch.Generator().manual_seed(N + d)
@@ -384,10 +389,27 @@ def test_rmsnorm_bwd_kernel_unaligned_input_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,d", [(8192, 3072), (4, 3072), (1000, 128)])
+def test_rmsnorm_bwd_kernel_unaligned_narrow_rows_match_plain(cuda, dtype):
+    """Rows of at most 32 elements one element off a 16-byte boundary:
+    the narrow path, element by element, several rows a lane."""
+    gen = torch.Generator().manual_seed(15)
+    N, d = 70000, 24
+    x, dy = ((torch.randn((N * d + 1,), generator=gen) * 3).to(dtype)
+             .to(cuda)[1:].view(N, d) for _ in range(2))
+    scale = (torch.randn((d,), generator=gen) + 1.0).to(cuda)
+    assert rmsnorm.rmsnorm_bwd_slabs(N, d, dtype, False).slab > 1
+    dx, ds = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)
+    _bwd_close(dx, ds, *rmsnorm.rmsnorm_bwd_torch(x, scale, dy), x, scale,
+               dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d", [(8192, 3072), (4, 3072), (1000, 128),
+                                 (8192, 128), (65536, 128), (1024, 12288)])
 def test_rmsnorm_bwd_kernel_is_deterministic(cuda, N, d, dtype):
-    """Partial sums over fixed slabs added in a fixed order, no atomics:
-    two launches agree bit for bit, dscale included."""
+    """Partial sums over a partition fixed by the shape added in a fixed
+    order, no atomics: two launches agree bit for bit, dscale
+    included."""
     gen = torch.Generator().manual_seed(14)
     x, scale, dy = _bwd_case(gen, N, d, dtype, cuda)
     a = rmsnorm.rmsnorm_bwd_cuda(x, scale, dy)

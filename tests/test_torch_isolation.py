@@ -2,7 +2,8 @@
 neither jax nor any module of the JAX package ``repro`` (nor
 ``torch.testing._internal.distributed``, whose fake process group the
 dry run loads only when it plans), and no source of
-the port or ``chip_smoke.py`` imports either; ``repro_torch.sim`` exports
+the port, ``chip_smoke.py`` or the port's timing scripts imports either;
+``repro_torch.sim`` exports
 what ``repro.sim`` does."""
 from __future__ import annotations
 
@@ -75,7 +76,9 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "offer_kernels_ab.py",
+        ROOT / "scripts" / "rmsnorm_bwd_ab.py"]
     offenders = [(str(p.relative_to(ROOT)), name) for p in files
                  for name in _imported_roots(p)
                  if name in ("jax", "jaxlib", "repro")]

@@ -186,7 +186,8 @@ def test_layer_windows_match():
 
 # ---------------------------------------------------------------- whole model
 @pytest.mark.parametrize("arch", ["gemma-7b", "qwen3-32b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "command-r-plus-104b"])
 def test_prefill_and_decode_match(arch):
     """Prefill, then decode steps through the cache, against the JAX
     ``Model`` step by step. The MoE config runs at its default capacity

@@ -11,6 +11,7 @@ are those of the JAX package's own kernel tests: float32 2e-5, bfloat16
 but their float32 reductions differ in order)."""
 from __future__ import annotations
 
+import inspect
 import types
 
 import jax
@@ -290,16 +291,102 @@ def test_rmsnorm_on_cpu_is_differentiable_through_ops():
     torch.testing.assert_close(ts.grad, want_ds, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows,slab,lanes", [
-    (0, 1, 0), (1, 1, 1), (4, 1, 4), (512, 1, 512), (513, 2, 257),
-    (8192, 16, 512), (8191, 16, 512), (65536, 128, 512)])
-def test_bwd_slabs(rows, slab, lanes):
-    """Lanes of at most ``BWD_LANES``; every lane has a row; the lanes
-    cover every row."""
-    s = rn.rmsnorm_bwd_slabs(rows)
-    assert (s.slab, s.lanes) == (slab, lanes)
-    assert s.lanes <= rn.BWD_LANES and s.lanes * s.slab >= rows
-    assert s.lanes == 0 or (s.lanes - 1) * s.slab < rows
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("rows,d,dtype,aligned", [
+    # Qwen3-32B's QK-norm rows, Gemma-7B's training and decode rows, the
+    # widest row, Qwen3-32B's and Command R+'s d_model at 1024 tokens, the
+    # cluster's reduced rows
+    (65536, 128, _BF16, True), (8192, 128, _BF16, True),
+    (8192, 3072, _BF16, True), (4, 3072, _BF16, True),
+    (16, 16384, _BF16, True), (1024, 5120, _BF16, True),
+    (1024, 12288, _BF16, True), (1024, 256, _BF16, True),
+    (4096, 32, _BF16, True),
+    # no row, one row, fewer rows than one block's lanes, and rows that
+    # leave the last block part full
+    (0, 128, _BF16, True), (0, 3072, _F32, True), (1, 128, _BF16, True),
+    (1, 3072, _BF16, True), (5, 128, _BF16, True), (8191, 128, _BF16, True),
+    (65535, 128, _BF16, True), (8191, 3072, _BF16, True),
+    # float32, the element-wise path, rows whose ring does not fit
+    (1000, 128, _F32, True), (16, 16384, _F32, True),
+    (33, 77, _BF16, False), (300, 1, _F32, False), (40, 3072, _F32, False),
+])
+def test_bwd_slabs(rows, d, dtype, aligned, monkeypatch):
+    """The backward's partition: every row lies in exactly one lane, each
+    block has a row (the partial has one row a block), the plan is a
+    function of (rows, d, dtype, aligned) alone, and the layout under it
+    covers the row, at d up to ``MAX_D``."""
+    s = rn.rmsnorm_bwd_slabs(rows, d, dtype, aligned)
+    lay = rmsnorm_layout(d, dtype, aligned)
+    # the kernel's map: lane j of block b takes b L S + j + k L, k < S
+    b, j, k = np.meshgrid(np.arange(s.blocks), np.arange(s.lanes),
+                          np.arange(s.slab), indexing="ij")
+    got = b * s.lanes * s.slab + j + k * s.lanes
+    assert np.array_equal(np.sort(got[got < rows]), np.arange(rows))
+    owner = np.full(rows, -1)
+    owner[got[got < rows]] = b[got < rows]
+    assert np.array_equal(np.unique(owner), np.arange(s.blocks))
+    assert s.lanes == (lay.threads // lay.tpr if lay.tpr <= 32 else 1)
+    # (rows, d, dtype, aligned) alone: no card is asked, and the call
+    # gives the same plan again
+    assert list(inspect.signature(rn.rmsnorm_bwd_slabs.__wrapped__)
+                .parameters) == ["rows", "d", "dtype", "aligned"]
+
+    def asked(*a, **k):
+        raise AssertionError("the partition asked the card")
+
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, asked)
+    rn.rmsnorm_bwd_slabs.cache_clear()
+    assert rn.rmsnorm_bwd_slabs(rows, d, dtype, aligned) == s
+    # the layout covers the row; the ring fits where it is taken
+    for width in (d, MAX_D):
+        lay = rmsnorm_layout(width, dtype, aligned)
+        assert lay.tpr * lay.nch * lay.width >= width
+        plan = rn.rmsnorm_bwd_slabs(rows, width, dtype, aligned)
+        if plan.stages:
+            assert 2 <= plan.stages <= rn.BWD_RING_STAGES
+            assert lay.tpr > 32 and lay.width > 1
+            assert plan.stages * 2 * width * dtype.itemsize \
+                <= rn.BWD_RING_BYTES_PER_SM
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(65536, 128, _BF16),
+                                          (8192, 3072, _BF16),
+                                          (0, 3072, _F32)])
+def test_bwd_wrapper_hands_the_kernel_its_partition(rows, d, dtype,
+                                                    monkeypatch):
+    """``rmsnorm_bwd_cuda`` passes the plan of ``rmsnorm_bwd_slabs`` and
+    the layout of ``rmsnorm_layout`` to the kernel, with a (blocks, d)
+    float32 partial; counted once a call (the entry is stood in for:
+    this box has no card)."""
+    seen, sizes = [], []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        sizes.append((tuple(shape[0]) if len(shape) == 1 else shape,
+                      kw.get("dtype")))
+        return real_empty(*shape, **kw)
+
+    monkeypatch.setattr(rn, "_check", lambda x, scale: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "entry", lambda name, sym, argtypes:
+                        lambda *a: seen.append(a) or 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    x = torch.ones((rows, d), dtype=dtype)
+    before = rn.LAUNCHES_BWD
+    rn.rmsnorm_bwd_cuda(x, torch.ones(d), torch.ones((rows, d), dtype=dtype))
+    assert rn.LAUNCHES_BWD == before + 1
+    (args,) = seen
+    aligned = all(p % 16 == 0 for p in args[:4])
+    lay = rmsnorm_layout(d, dtype, aligned)
+    s = rn.rmsnorm_bwd_slabs(rows, d, dtype, aligned)
+    assert args[6:8] == (rows, d)
+    assert args[10:] == (lay.threads, lay.tpr, lay.nch, int(lay.width > 1),
+                         s.slab, s.lanes, s.blocks, s.stages)
+    assert ((s.blocks, d), torch.float32) in sizes
 
 
 def test_bwd_kernel_refuses_what_it_does_not_take():

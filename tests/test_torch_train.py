@@ -52,6 +52,9 @@ from repro_torch.train import Trainer, TrainerConfig, make_train_state, \
 #: torch gradient): Hymba's ``ssm_norm``
 FAMILIES = {
     "gemma-7b": ({}, (2, 16), ()),
+    # QK-norm: the norm's gradient over rows of the head width
+    "qwen3-32b": ({}, (2, 16), ()),
+    "command-r-plus-104b": ({}, (2, 16), ()),
     # capacity 8 of 16 expected tokens an expert a group: slots drop
     "phi3.5-moe-42b-a6.6b": ({"moe_capacity_factor": 0.5}, (2, 16), ()),
     "minicpm3-4b": ({}, (2, 16), ()),
