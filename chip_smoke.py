@@ -49,8 +49,11 @@ paths:
     bfloat16 compute) serving 8 requests of 1024 prompt tokens and 32
     new tokens, max_batch 4, greedy, through ``ServeEngine.serve``, with
     exact launch counts of both kernels, every prefill's attention on
-    the tensor-core kernel, and the profiled run's rmsnorm device time
-    split into its prefill-shape and decode-shape launches; then a
+    the tensor-core kernel, and a profiled serve giving the idle share
+    and the rmsnorm device time split by phase and launch shape (each
+    profiler session padded with launches before and after its work and
+    held to its launch count: a session that lost a launch of its work
+    reads None); then a
     2-layer float32 cut of the full-width model served on the card and
     on the CPU from the same weights, requiring identical greedy tokens;
   * the training path: rmsnorm's backward kernel against its plain
@@ -102,8 +105,20 @@ paths:
     2-layer float32 cut on the card and on the CPU, requiring identical
     greedy tokens and identical routing (top-k indices, keep masks) at
     every token whose routing gap exceeds 1e-6;
-  * the MLA, vision, SSM, hybrid and enc-dec serving paths, each phase
-    freeing the last model first: MiniCPM3-4B at full width (d_model
+  * Command R+ at full width (d_model 12,288, 96 x 128 query heads over
+    8 kv heads, d_ff 33,792, vocab 256,000 untied, bf16 params) cut to 1
+    of its 64 layers, trained 3 steps of 16 x 64 tokens with the cluster
+    example's AdamW (lr 1e-3, bf16 moments), its update in slabs: the
+    peak reckoned first and printed beside the measured one, finite
+    losses, a finite non-zero gradient on every param, exact norm
+    launches, step times and the profiled step's idle share;
+  * the dense GQA, MLA, vision, SSM, hybrid and enc-dec serving paths,
+    each phase freeing the last model first: Qwen3-32B at full width
+    (d_model 5120, 64 x 128 query heads over 8 kv heads, QK-norm, d_ff
+    25,600, vocab 151,936 untied, float32 params) cut to 16 of its 64
+    layers and Command R+ (as above, bf16 params) cut to 12 of its 64,
+    each with Gemma-7B's traffic through ``ServeEngine.serve``;
+    MiniCPM3-4B at full width (d_model
     2560, 40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64,
     vocab 73448, tied) cut to 16 of its 62 layers, with Gemma-7B's
     traffic through ``ServeEngine.serve``; LLaVA-NeXT (Mistral-7B) at
@@ -123,9 +138,10 @@ paths:
     16 x 64 heads,
     vocab 256206) through ``Model.prefill`` / ``decode``, two batches of 4
     requests of 1600 random frame embeddings + 128 target tokens, 32 new;
-    each with exact launch counts (MLA: four norms a layer, no flash; the
-    SSM: two, no flash; Hymba: five and one flash a layer a prefill;
-    SeamlessM4T: 25 an encode, 37 a decoder forward, 36 flash a prefill)
+    each with exact launch counts (QK-norm and MLA: four norms a layer,
+    MLA no flash; the SSM: two, no flash; Hymba: five and one flash a
+    layer a prefill; SeamlessM4T: 25 an encode, 37 a decoder forward, 36
+    flash a prefill)
     and then its 2-layer float32 cut on the card and on the CPU
     (identical greedy tokens, logits within 1e-3, exact launches;
     DeepSeek-V2 also identical routing above the 1e-6 gap; LLaVA with 256
@@ -137,13 +153,18 @@ It prints each path's numbers, the card's name and power limit, one JSON
 line with each kernel's launches, error, times and bound (the offer
 kernels also with their host-level call's time, copies included;
 rmsnorm at the prefill shape (4096, 3072) and, nested, the decode shape
-(4, 3072), under ``gemma_7b_train`` the training run's launches and the
+(4, 3072), under ``qwen3_32b`` and ``command_r_plus`` at their block
+rows (4096 and 4) and Qwen3-32B's QK-norm rows (262144, 32768, 256 and
+32 of 128), Command R+'s training rows (1024, 12288) too, under
+``gemma_7b_train`` the training run's launches and the
 training shape (8192, 3072), under ``cluster`` the cluster phase's
 launches and Qwen3-32B's QK-norm shapes (65536, 128) and (8192, 128),
 and under ``phi35_moe`` at (4096, 4096) and
 (4, 4096); rmsnorm's backward at the training shape, its launches the
-training run's, and under ``cluster`` as the forward; flash
-attention's bf16 route and, under ``phi35_moe``, at Phi-3.5-MoE's
+training run's, under ``cluster`` as the forward and under
+``command_r_plus_train`` at (1024, 12288); flash attention's bf16 route
+and, under ``qwen3_32b`` and ``command_r_plus``, at their prefill (4,
+1024, 64 or 96 heads, 8 kv heads, 128), under ``phi35_moe`` at Phi-3.5-MoE's
 prefill (4, 1024, 32 heads, 8 kv heads, 128), under ``llava_next`` at
 LLaVA-NeXT's (4, 3008, 32, 8, 128), under ``hymba_1_5b`` at Hymba's (4,
 2048, 25, 5, 64; window 1024 and global) and under
@@ -221,6 +242,21 @@ DSV2_SERVE_POINT = dict(arch="deepseek-v2-236b", layers=6, requests=8,
                         prompt_len=512, max_new=16, max_batch=4, seed=0)
 DSV2_PARITY_POINT = dict(arch="deepseek-v2-236b", layers=2, requests=2,
                          prompt_len=128, max_new=8, seed=1)
+# dense GQA at the widths not served before: Qwen3-32B (QK-norm over
+# rows of its head width 128; 64 query heads over 8 kv heads; float32
+# params) cut to 16 of its 64 layers (9.36 B params: 56.2 GB at set-up
+# with the engine's bf16 copy), and Command R+ (d 12,288, 96 query heads
+# over 8 kv heads, d_ff 33,792, vocab 256,000 untied, bf16 params, which
+# the engine reads as they are) cut to 12 of its 64 layers (25.2 B
+# params, 50.3 GB); Gemma's traffic
+QWEN3_SERVE_POINT = dict(arch="qwen3-32b", layers=16, requests=8,
+                         prompt_len=1024, max_new=32, max_batch=4, seed=0)
+QWEN3_PARITY_POINT = dict(arch="qwen3-32b", layers=2, requests=2,
+                          prompt_len=128, max_new=8, seed=1)
+CMDR_SERVE_POINT = dict(arch="command-r-plus-104b", layers=12, requests=8,
+                        prompt_len=1024, max_new=32, max_batch=4, seed=0)
+CMDR_PARITY_POINT = dict(arch="command-r-plus-104b", layers=2, requests=2,
+                         prompt_len=128, max_new=8, seed=1)
 # the SSM, hybrid and enc-dec serving runs, each at full width:
 # Mamba2-780m at full depth with Gemma's traffic (a 1024-token prompt is
 # 4 SSD chunks); Hymba-1.5B cut to 16 of its 32 layers (the whole depth's
@@ -267,6 +303,15 @@ CLUSTER_POINT = dict(slots=8, jobs=6, steps_per_slot=3)
 CLUSTER_FULL_POINT = dict(archs=("gemma-7b", "qwen3-32b"), slots=8, jobs=6,
                           steps_per_slot=3, layers=2, state_limit_gb=64.0,
                           profile_step=2)
+
+# Command R+ trained at full width cut to 1 of its 64 layers, as the
+# cluster phase trains its jobs: 16 x 64 tokens, 3 steps, the cluster
+# example's AdamW (lr 1e-3, moments in the params' bf16) and train step
+# (remat "full", the reference's warm-up, the float32 loss head over
+# 256,000 words); the third step profiled. Its params, gradients and
+# moments (8 B a param) are 62.9 GB
+CMDR_TRAIN_POINT = dict(arch="command-r-plus-104b", layers=1, batch=16,
+                        seq_len=64, steps=3, lr=1e-3, seed=0, profile_step=2)
 
 PAPER_POINT = dict(machines=100, horizon=20, jobs=50, preset="ethernet",
                    workload_scale=0.3, batch=(50, 200), quanta=20, seed=0)
@@ -335,25 +380,67 @@ def _rotating(fn, sets: list):
 
 
 def _device_ms(fn, name: str, reps: int = 50) -> float:
-    """Mean device time of the kernel whose name contains ``name``, from
-    torch.profiler; None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device time of the kernel whose name contains ``name`` over
+    ``reps`` calls of ``fn`` in a held session (``start_session``); None
+    unless the session recorded a kernel for every launch of the calls."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    tot, n = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            dev = getattr(ev, "device_time_total", None)
-            if dev is None:
-                dev = getattr(ev, "cuda_time_total", 0.0)
-            tot += dev
-            n += ev.count
-    return (tot / n / 1e3) if n and tot > 0 else None
+    prof = start_session()
+    for _ in range(reps):
+        fn()
+    stop_session(prof)
+    launched, ran, _ = _kernel_counts(prof, PAD_HEAD + PAD_TAIL)
+    times = [ns for n, _, ns in _device_events(prof) if name in n]
+    return sum(times) / len(times) / 1e6 \
+        if times and launched == ran else None
+
+
+#: the kernel ``torch.cuda._sleep`` launches: a held session's pads
+PAD_KERNEL = "spin_kernel"
+#: launches padding a held session before and after its work. In a
+#: process that has profiled before, a CUDA profiler session can drop the
+#: kernel records of its first launches and of a tail of its last ones;
+#: the first session of a process drops none (``scripts/
+#: profiler_sessions.py``: bare sessions of a 36,948-launch serve lost
+#: their first launch and their last 584 or 424; held ones lost only
+#: pads, up to the last 1400 of the tail's; H100 80GB HBM3, torch 2.11)
+PAD_HEAD, PAD_TAIL = 64, 16384
+
+
+def _pad(n: int) -> None:
+    for _ in range(n):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def start_session():
+    """A CUDA-activity profiler session, started and padded (``PAD_HEAD``
+    launches of ``PAD_KERNEL``, then a sync): the work that follows is the
+    session's. ``stop_session`` ends it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    _pad(PAD_HEAD)
+    return prof
+
+
+def stop_session(prof):
+    """Sync, pad (``PAD_TAIL`` launches) and stop ``prof``."""
+    torch.cuda.synchronize()
+    _pad(PAD_TAIL)
+    prof.stop()
+    return prof
+
+
+def _device_events(prof) -> list:
+    """A stopped session's device events (kernels, copies, fills) as
+    (name, start ns, duration ns), read from the profiler's raw results:
+    building its ``events()`` would take seconds at 10^5 events."""
+    from torch.autograd import DeviceType
+    return [(ev.name(), ev.start_ns(), ev.duration_ns())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == DeviceType.CUDA]
 
 
 # --------------------------------------------------------------- inputs
@@ -522,16 +609,11 @@ def run_main_path(rt, trace, device: str):
     return jobs, res, wall, tracer
 
 
-def device_busy_share(rt, trace) -> tuple:
-    """(wall s, device-busy s) of one main-path run under torch.profiler:
-    busy is the summed self device time of every kernel and copy."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = run_main_path(rt, trace, "cuda")
-    busy_us = sum(getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-                  for ev in prof.key_averages())
-    return wall, busy_us / 1e6
+def device_busy_share(rt, trace) -> dict:
+    """``profile_busy`` of one main-path run in a held session."""
+    prof = start_session()
+    _, _, wall, _ = run_main_path(rt, trace, "cuda")
+    return profile_busy(stop_session(prof), wall)
 
 
 # ----------------------------------------------------------- online sim
@@ -638,7 +720,6 @@ def _require_cuda_spans(tracer, what: str) -> dict:
 def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
     """The online simulator on the card against the CPU: PD-ORS, the three
     slot-driven baselines, and OASiS at the Fig. 6 point."""
-    from torch.profiler import ProfilerActivity, profile
     t_phase = time.perf_counter()
     warm = run_sim(launch_sim, "pdors", "cuda")
     pricing.LAUNCHES = 0
@@ -665,11 +746,9 @@ def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
         base[name] = {"wall": g["wall"], "cpu_wall": c["wall"],
                       "jobs_per_s": SIM_POINT["jobs"] / g["wall"]}
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prof_run = run_sim(launch_sim, "pdors", "cuda")
-    busy = sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages()) / 1e6
+    prof = start_session()
+    prof_run = run_sim(launch_sim, "pdors", "cuda")
+    busy = profile_busy(stop_session(prof), prof_run["wall"])
 
     # OASiS at the Fig. 6 point: the bundle kernel at R = 6
     p = PAPER_POINT
@@ -694,7 +773,7 @@ def online_sim(rt, launch_sim, trace, pricing, minplus) -> dict:
         raise AssertionError(f"OASiS utility {uo} != {uc}")
     return {"gpu": gpu, "warm_wall": warm["wall"], "launches": launches,
             "spans": spans, "rows": rows, "top": top, "admission": adm,
-            "baselines": base, "busy": busy, "prof_wall": prof_run["wall"],
+            "baselines": base, "busy": busy,
             "oasis": oasis, "wall": time.perf_counter() - t_phase}
 
 
@@ -882,16 +961,12 @@ def service_sim(launch_sim, pricing, minplus) -> dict:
 
 
 def chaos_profiled(launch_sim, trace) -> dict:
-    """One cuda chaos run under torch.profiler and a tracer: the device's
-    busy time (summed self device time of every kernel and copy) and the
-    top spans by self time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One cuda chaos run in a held session and under a tracer: its
+    ``profile_busy`` and the top spans by self time."""
     tracer = trace.Tracer()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        r = run_sim(launch_sim, "pdors", "cuda", tracer, faults=True)
-    busy = sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-               for ev in prof.key_averages()) / 1e6
+    prof = start_session()
+    r = run_sim(launch_sim, "pdors", "cuda", tracer, faults=True)
+    busy = profile_busy(stop_session(prof), r["wall"])
     top = sorted(tracer.phase_table().items(),
                  key=lambda kv: -kv[1]["self_s"])[:10]
     return {"wall": r["wall"], "busy": busy, "top": top}
@@ -1001,7 +1076,12 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                  # the reduced configs' widths (d_model 256, MLA ranks 64
                  # and 32, QK-norm at head width 32)
                  (1024, 5120), (1024, 3072), (8192, 128), (1024, 256),
-                 (4096, 32), (1024, 64), (1024, 32), (512, 32)]:
+                 (4096, 32), (1024, 64), (1024, 32), (512, 32),
+                 # the dense GQA serving points: Qwen3-32B's block rows and
+                 # QK-norm rows (prefill, decode), Command R+'s block rows
+                 # and its training rows
+                 (4096, 5120), (262144, 128), (32768, 128), (256, 128),
+                 (32, 128), (4096, 12288), (4, 12288), (1024, 12288)]:
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn((N, d), generator=gen) * 3).to(dt).to(dev)
             scale = (torch.randn((d,), generator=gen) + 1).to(dev)
@@ -1023,6 +1103,11 @@ def check_model_kernels(rmsnorm, flash) -> dict:
         (4, 128, 1600, 16, 16, 64, False, 0, ("bf16", "f32")),
         (4, 128, 128, 16, 16, 64, True, 0, ("bf16", "f32")),
         (2, 512, 512, 64, 8, 128, True, 0, ("bf16", "f32")),
+        # Qwen3-32B's and Command R+'s prefill, then their float32 cuts'
+        (4, 1024, 1024, 64, 8, 128, True, 0, ("bf16",)),
+        (4, 1024, 1024, 96, 8, 128, True, 0, ("bf16",)),
+        (2, 128, 128, 64, 8, 128, True, 0, ("f32",)),
+        (2, 128, 128, 96, 8, 128, True, 0, ("bf16", "f32")),
         (1, 200, 200, 4, 2, 256, True, 0, ("bf16", "f32")),
         (2, 128, 256, 4, 4, 64, False, 0, ("bf16", "f32")),
         (1, 512, 512, 4, 4, 128, True, 32, ("bf16", "f32")),
@@ -1208,26 +1293,44 @@ def drop_counts(record: list, cfg) -> dict:
     return out
 
 
-def norms_per_layer(cfg, cross_attention: bool = False) -> int:
-    """rmsnorm launches one block makes a forward, from the blocks' code:
-    ``attn_norm`` and MLA's q_norm and kv_norm (or GQA's qk-norm) with
-    attention; the SSM's gated norm and, outside a hybrid, ``ssm_norm``;
-    a hybrid's two output norms; ``cross_norm`` (and the cross
-    attention's qk-norm) in an enc-dec decoder block; ``ffn_norm`` with
-    an MLP or experts."""
-    qk = 2 if cfg.attention == "mla" or cfg.qk_norm else 0
-    n = 0
+def layer_norms(cfg, cross_attention: bool = False) -> list:
+    """The rmsnorm launches one block makes a forward, in the blocks'
+    order, each as (width, heads, source): it norms ``heads`` rows of
+    ``width`` for each position of ``source`` ("tokens": the block's own
+    positions; "frames": the encoder's). ``attn_norm``, then the
+    attention's own norms (GQA's qk-norm over each query and each kv head,
+    MLA's q_norm and kv_norm at its ranks); the SSM's ``ssm_norm`` outside
+    a hybrid, then its gated norm at d_inner; a hybrid's two output norms;
+    ``cross_norm`` and the cross attention's qk-norm (its keys over the
+    frames); ``ffn_norm`` with an MLP or experts."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+
+    def qk_norm(keys: str) -> list:
+        return [(hd, cfg.num_heads, "tokens"),
+                (hd, cfg.num_kv_heads, keys)] if cfg.qk_norm else []
+
+    out = []
     if cfg.attention != "none":
-        n += 1 + qk
+        out.append((d, 1, "tokens"))
+        out += [(cfg.mla.q_lora_rank, 1, "tokens"),
+                (cfg.mla.kv_lora_rank, 1, "tokens")] \
+            if cfg.attention == "mla" else qk_norm("tokens")
     if cfg.ssm is not None:
-        n += 1 if cfg.hybrid else 2
+        if not cfg.hybrid:
+            out.append((d, 1, "tokens"))
+        out.append((cfg.ssm.d_inner(d), 1, "tokens"))
     if cfg.hybrid:
-        n += 2
+        out += [(d, 1, "tokens")] * 2
     if cross_attention:
-        n += 1 + (2 if cfg.qk_norm else 0)
+        out += [(d, 1, "tokens")] + qk_norm("frames")
     if cfg.moe is not None or cfg.d_ff > 0:
-        n += 1
-    return n
+        out.append((d, 1, "tokens"))
+    return out
+
+
+def norms_per_layer(cfg, cross_attention: bool = False) -> int:
+    """rmsnorm launches one block makes a forward (``layer_norms``)."""
+    return len(layer_norms(cfg, cross_attention))
 
 
 def expected_launches(cfg, batches: int, forwards: int) -> dict:
@@ -1249,34 +1352,41 @@ def expected_launches(cfg, batches: int, forwards: int) -> dict:
 
 
 def norm_plan(cfg, p: dict) -> list:
-    """The order of one batch's rmsnorm launches by row count: (label,
-    launches, rows) runs. An enc-dec prefill norms the frames first; every
-    prefill then norms its prompt rows in every block; the final norm of
-    the prefill (on its last position) and every decode forward run on
-    ``max_batch`` rows."""
-    B = p["max_batch"]
-    per_forward = cfg.num_layers * norms_per_layer(
-        cfg, bool(cfg.encoder_layers)) + 1
+    """One batch's rmsnorm launches in order, each as (phase, rows,
+    width): an enc-dec prefill norms the frames first (its encoder blocks
+    and ``enc_norm``); the prefill runs every block over the prompt
+    (image tokens first) and the final norm on its last position; each
+    decode forward runs every block on one position and the final
+    norm. ``layer_norms`` gives each block's norms."""
+    B, d = p["max_batch"], cfg.d_model
+    frames = p.get("frames", 0)
+    cross = bool(cfg.encoder_layers)
+
+    def forward(phase: str, layers: int, norms: list, tokens: int) -> list:
+        return [(phase, B * heads * (tokens if src == "tokens" else frames),
+                 width)
+                for _ in range(layers) for width, heads, src in norms]
+
     plan = []
-    if cfg.encoder_layers:
-        plan.append(("encoder_shape",
-                     cfg.encoder_layers * norms_per_layer(cfg) + 1,
-                     B * p["frames"]))
-    plan.append(("prefill_shape", per_forward - 1,
-                 B * (p.get("images", 0) + p["prompt_len"])))
-    plan.append(("decode_shape", 1 + (p["max_new"] - 1) * per_forward, B))
+    if cross:
+        plan += forward("encoder", cfg.encoder_layers, layer_norms(cfg),
+                        frames) + [("encoder", B * frames, d)]
+    norms = layer_norms(cfg, cross)
+    plan += forward("prefill", cfg.num_layers, norms,
+                    p.get("images", 0) + p["prompt_len"])
+    plan.append(("prefill", B, d))
+    for _ in range(p["max_new"] - 1):
+        plan += forward("decode", cfg.num_layers, norms, 1)
+        plan.append(("decode", B, d))
     return plan
 
 
-def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
-    """The point's model at full width (cut in depth where the point
-    says) on the card: through ServeEngine.serve, or for a stub-frontend
-    point (image or frame embeddings) through ``_frontend_server``.
-    Raises unless every completion, the prefill logits and the launch
-    counts are right. Returns the run's numbers; for MoE also the dropped
-    slots of the warm-up's forwards."""
-    from torch.profiler import ProfilerActivity, profile
-
+def serving_engine(p: dict) -> tuple:
+    """The point's model at full width (cut in depth where the point says)
+    on the card, and its server: ``ServeEngine``, or for a stub-frontend
+    point (image or frame embeddings) ``_frontend_server``. Returns (cfg,
+    engine, requests, init s, set-up peak bytes: the params and the
+    engine's compute copy)."""
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
@@ -1299,20 +1409,21 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
         reqs = _requests(Request, cfg.vocab_size, p["requests"],
                          p["prompt_len"], p["max_new"], p["seed"])
     torch.cuda.synchronize()
-    setup_peak = torch.cuda.max_memory_allocated()
-    del params                  # the engine keeps the copy it reads
+    return cfg, engine, reqs, init_s, torch.cuda.max_memory_allocated()
 
-    # warm-up (first use of each cuBLAS shape), the prefill logits, and
-    # for MoE the routing of the warm-up's forwards
-    routing: list = []
-    hooks = record_routing(engine.params, cfg, routing) if cfg.moe else []
+
+def warm_up(engine, cfg, p: dict, reqs: list) -> None:
+    """The first cuBLAS use of each shape: one prefill of the first batch,
+    whose last-position logits must be finite and of the right shape, and
+    one 2-token batch."""
+    key, _ = _frontend_key(p)
     first = reqs[:p["max_batch"]]
     if key:
         batch = engine.batch(first)
     else:
         batch = {"tokens": torch.from_numpy(
             np.stack([r.prompt for r in first])).long().cuda()}
-    logits, _ = engine.model.prefill(engine.params, batch, cache_len)
+    logits, _ = engine.model.prefill(engine.params, batch, _cache_len(p))
     want_shape = (len(first), 1, cfg.vocab_size)
     if tuple(logits.shape) != want_shape or \
             not bool(torch.isfinite(logits).all()):
@@ -1321,6 +1432,67 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
     del logits, batch
     engine.run_batch([dataclasses.replace(r, max_new_tokens=2)
                       for r in first])
+
+
+def profiled_serve(engine, cfg, p: dict, reqs: list, want: dict) -> tuple:
+    """``engine.serve(reqs)`` once more in a held session
+    (``start_session``): ((launch calls, kernels run), numbers), the
+    numbers being device busy time by kernel, the idle share of the run's
+    wall, the attention kernels it ran and rmsnorm's device time by phase
+    and shape (``rmsnorm_by_shape``), or None when the session lost a
+    launch of the serve (``profile_busy``): every sum over it would be
+    short."""
+    prof = start_session()
+    t1 = time.perf_counter()
+    engine.serve(reqs)
+    torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t1
+    b = profile_busy(stop_session(prof), prof_wall)
+    if b["busy"] is None:
+        return b["session"], None
+    by_kernel = b["by_kernel"]
+    batches = -(-p["requests"] // p["max_batch"])
+    flash_calls: dict = {}
+    for name, _, _ in _device_events(prof):
+        if "flash_fwd_kernel" in name:
+            flash_calls[name] = flash_calls.get(name, 0) + 1
+    # every GQA prefill's attention ran on the tensor-core kernel; MLA
+    # and the SSM run none
+    if want["flash_attention"] and (
+            len(flash_calls) != 1 or
+            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
+            sum(flash_calls.values()) != want["flash_attention"]) or \
+            not want["flash_attention"] and flash_calls:
+        raise AssertionError(f"profiled serving run's attention kernels "
+                             f"{flash_calls}, want {want['flash_attention']}"
+                             f" launches of flash_fwd_kernel_tc")
+    return b["session"], dict(
+        prof_wall=prof_wall, busy=b["busy"], idle=b["idle"], top=b["top"],
+        flash_calls=flash_calls,
+        rmsnorm_s=sum(t for k, t in by_kernel.items()
+                      if "rmsnorm_kernel" in k),
+        rmsnorm_split=rmsnorm_by_shape(prof, batches, norm_plan(cfg, p),
+                                       want["rmsnorm"]),
+        flash_s=sum(t for k, t in by_kernel.items()
+                    if "flash_fwd_kernel" in k))
+
+
+
+
+def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
+    """The point's model at full width (cut in depth where the point
+    says) on the card, through its server (``serving_engine``). Raises
+    unless every completion, the prefill logits and the launch counts are
+    right. Returns the run's numbers; for MoE also the dropped slots of
+    the warm-up's forwards. The device numbers come from a profiled serve
+    that kept every launch (``profiled_serve``), else read None."""
+    cfg, engine, reqs, init_s, setup_peak = serving_engine(p)
+
+    # warm-up (first use of each cuBLAS shape), the prefill logits, and
+    # for MoE the routing of the warm-up's forwards
+    routing: list = []
+    hooks = record_routing(engine.params, cfg, routing) if cfg.moe else []
+    warm_up(engine, cfg, p, reqs)
     for h in hooks:
         h.remove()
     drops = drop_counts(routing, cfg) if cfg.moe else None
@@ -1351,32 +1523,9 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
                                  f"{c.tokens}")
 
     # the same run under the profiler: device busy time by kernel
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        engine.serve(reqs)
-        prof_wall = time.perf_counter() - t1
-    norm_split = rmsnorm_by_shape(prof, batches, norm_plan(cfg, p),
-                                  want["rmsnorm"])
-    by_kernel, flash_calls = {}, {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e6
-        if "flash_fwd_kernel" in ev.key:
-            flash_calls[ev.key] = flash_calls.get(ev.key, 0) + ev.count
-    # every GQA prefill's attention ran on the tensor-core kernel; MLA
-    # and the SSM run none
-    if want["flash_attention"] and (
-            len(flash_calls) != 1 or
-            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
-            sum(flash_calls.values()) != want["flash_attention"]) or \
-            not want["flash_attention"] and flash_calls:
-        raise AssertionError(f"profiled serving run's attention kernels "
-                             f"{flash_calls}, want {want['flash_attention']}"
-                             f" launches of flash_fwd_kernel_tc")
-    busy = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    session, numbers = profiled_serve(engine, cfg, p, reqs, want)
+    del engine
+    torch.cuda.empty_cache()
 
     per_batch = sorted({(c.prefill_ms, c.decode_ms) for c in done})
     n_tok = sum(len(c.tokens) for c in done)
@@ -1384,23 +1533,17 @@ def serve_full_width(rmsnorm, flash, p: dict = SERVE_POINT) -> dict:
                wall=wall, tokens=n_tok,
                tok_per_s=n_tok / wall, per_batch=per_batch,
                setup_peak_gb=setup_peak / 1e9, serve_peak_gb=serve_peak / 1e9,
-               launches=launches, flash_calls=flash_calls,
-               prof_wall=prof_wall, busy=busy,
-               idle=1 - busy / prof_wall, top=top,
-               rmsnorm_s=sum(t for k, t in by_kernel.items()
-                             if "rmsnorm_kernel" in k),
-               rmsnorm_split=norm_split,
-               flash_s=sum(t for k, t in by_kernel.items()
-                           if "flash_fwd_kernel" in k))
+               launches=launches, session=session,
+               **(numbers or dict(prof_wall=None, busy=None, idle=None,
+                                  top=[], flash_calls=None, rmsnorm_s=None,
+                                  rmsnorm_split=None, flash_s=None)))
     if cfg.ssm is not None:
-        out["ssd"] = ssd_share(cfg, p, batches, busy)
+        out["ssd"] = ssd_share(cfg, p, batches, out["busy"])
     if cfg.sliding_window is not None:
         from repro_torch.models.blocks import layer_windows
         S = p.get("images", 0) + p["prompt_len"]
         out["windowed_layers"] = sum(
             w < S for w in layer_windows(cfg, cfg.num_layers))
-    del engine
-    torch.cuda.empty_cache()
     return out
 
 
@@ -1410,52 +1553,65 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
 
 
-def _kernel_counts(prof) -> tuple:
-    """(launch calls, kernels run, device us) in a profiled session: the
+def _kernel_counts(prof, pads: int = 0) -> tuple:
+    """(launch calls, kernels run, device us) in a profiled session, its
+    ``pads`` launches of ``PAD_KERNEL`` and their kernels aside: the
     host's calls in ``LAUNCH_CALLS`` (a driver call made inside a runtime
     call on its thread is that call's, and not counted again), the
-    device's kernel events (copies and fills aside) and the time of
-    every device event (a host op that launched a kernel also carries
-    that kernel's time, so only the device's own events are summed)."""
+    device's kernel events (copies, fills and CUPTI's "Command Buffer
+    Full", the host waiting on a full launch queue, aside) and the time of
+    every device event but that marker (a host op that launched a kernel
+    also carries that kernel's time, so only the device's own events are
+    summed)."""
+    import bisect
+
     from torch.autograd import DeviceType
     calls, ran, us = [], 0, 0.0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.name in LAUNCH_CALLS:
-            calls.append(ev)
-        elif ev.device_type == DeviceType.CUDA:
-            us += ev.time_range.end - ev.time_range.start
-            if not ev.name.startswith(("Memcpy", "Memset")):
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == DeviceType.CPU:
+            if name in LAUNCH_CALLS:
+                calls.append((name, ev.start_thread_id(), ev.start_ns(),
+                              ev.end_ns()))
+        elif ev.device_type() == DeviceType.CUDA and \
+                name != "Command Buffer Full" and PAD_KERNEL not in name:
+            us += ev.duration_ns() / 1e3
+            if not name.startswith(("Memcpy", "Memset")):
                 ran += 1
-    runtime = [ev for ev in calls if ev.name.startswith("cuda")]
+    # a thread's runtime calls do not overlap: the one that began last
+    # before a driver call is the only one that can hold it
+    runtime: dict = {}
+    for name, thread, start, end in sorted(
+            (c for c in calls if c[0].startswith("cuda")),
+            key=lambda c: c[2]):
+        runtime.setdefault(thread, []).append((start, end))
+    starts = {t: [c[0] for c in spans] for t, spans in runtime.items()}
 
-    def nested(ev) -> bool:
-        return any(r.thread == ev.thread
-                   and r.time_range.start <= ev.time_range.start
-                   and ev.time_range.end <= r.time_range.end
-                   for r in runtime)
+    def nested(thread: int, start: int, end: int) -> bool:
+        i = bisect.bisect_right(starts.get(thread, []), start) - 1
+        return i >= 0 and end <= runtime[thread][i][1]
 
-    launched = len(runtime) + sum(
-        1 for ev in calls if not ev.name.startswith("cuda") and not nested(ev))
-    return launched, ran, us
+    launched = sum(map(len, runtime.values())) + sum(
+        1 for name, thread, start, end in calls
+        if not name.startswith("cuda") and not nested(thread, start, end))
+    return launched - pads, ran, us
 
 
 def _busy_ms(fn, reps: int = 5) -> float:
-    """Device time per call of everything ``fn`` launches: the profiler's
-    device time over ``reps`` calls (after one unprofiled call). The
-    session must hold a kernel event for every launch call it saw; a
-    session that lost one is run once more, and None is returned when
-    that one loses a launch too, or the profiler records no device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call of everything ``fn`` launches: the device time
+    of a held session (``start_session``) over ``reps`` calls (after one
+    unprofiled call). The session must hold a kernel event for every
+    launch call it saw; a session that lost one is run once more, and
+    None is returned when that one loses a launch too, or the profiler
+    records no device time."""
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        launched, ran, us = _kernel_counts(prof)
+        prof = start_session()
+        for _ in range(reps):
+            fn()
+        launched, ran, us = _kernel_counts(stop_session(prof),
+                                           PAD_HEAD + PAD_TAIL)
         if launched > 0 and ran == launched and us > 0:
             return us / reps / 1e3
     return None
@@ -1489,7 +1645,7 @@ def ssd_share(cfg, p: dict, batches: int, busy_s: float) -> dict:
     step_ms = _busy_ms(lambda: ssm._recurrent_step(
         cache, x[:, :1], dt[:, :1], A, Bm[:, :1], Cm[:, :1]))
     del x, dt, Bm, Cm, cache
-    if prefill_ms is None or step_ms is None:
+    if prefill_ms is None or step_ms is None or busy_s is None:
         return {"prefill_ms": prefill_ms, "step_ms": step_ms, "share": None}
     total_s = batches * L * (prefill_ms + (p["max_new"] - 1) * step_ms) / 1e3
     return {"prefill_ms": prefill_ms, "step_ms": step_ms,
@@ -1497,23 +1653,22 @@ def ssd_share(cfg, p: dict, batches: int, busy_s: float) -> dict:
 
 
 def rmsnorm_by_shape(prof, batches: int, plan: list, launches: int):
-    """The profiled serving run's rmsnorm device time split by launch
-    shape. The server fixes the order of the launches, and the exact
-    launch count holds it: each batch runs ``plan``'s (label, launches,
-    rows) runs in order (``norm_plan``). The launches, in device order,
-    are split so; None unless the profiler recorded all ``launches``."""
-    evs = sorted((ev for ev in prof.events()
-                  if "rmsnorm_kernel" in ev.name),
-                 key=lambda ev: ev.time_range.start)
-    if len(evs) != launches or \
-            sum(n for _, n, _ in plan) * batches != launches:
+    """The profiled serving run's rmsnorm device time split by phase and
+    launch shape. The server fixes the order of the launches, and the
+    exact launch count holds it: each batch runs ``plan``'s (phase, rows,
+    width) launches in order (``norm_plan``). The launches, in device
+    order, are split so; None unless the profiler recorded all
+    ``launches``."""
+    evs = sorted((ev for ev in _device_events(prof)
+                  if "rmsnorm_kernel" in ev[0]), key=lambda ev: ev[1])
+    if len(evs) != launches or len(plan) * batches != launches:
         return None
-    labels = [label for label, n, _ in plan for _ in range(n)]
-    out = {label: [0, 0.0] for label, _, _ in plan}
-    for i, ev in enumerate(evs):
-        side = out[labels[i % len(labels)]]
+    out: dict = {}
+    for i, (_, _, ns) in enumerate(evs):
+        phase, rows, width = plan[i % len(plan)]
+        side = out.setdefault(f"{phase} ({rows}, {width})", [0, 0.0])
         side[0] += 1
-        side[1] += (ev.time_range.end - ev.time_range.start) / 1e6
+        side[1] += ns / 1e9
     return {k: {"launches": n, "device_s": t, "us_per_launch": t / n * 1e6}
             for k, (n, t) in out.items()}
 
@@ -1717,20 +1872,21 @@ def print_serving(label: str, p: dict, sv: dict) -> None:
           f"launches {sv['launches']}; init {sv['init_s']:.2f} s; peak "
           f"memory {sv['setup_peak_gb']:.2f} GB at set-up (params + "
           f"compute copy), {sv['serve_peak_gb']:.2f} GB while serving")
-    print(f"{label} device busy {sv['busy']:.4f} s of a profiled "
-          f"{sv['prof_wall']:.4f} s run: idle share {sv['idle']:.4f}; "
-          f"rmsnorm {sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s "
-          f"(calls {sv['flash_calls']}); "
-          f"top kernels by device time: " + "; ".join(
-              f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
+    launched, ran = sv["session"]
+    if sv["busy"] is None:
+        print(f"{label} device busy: not measured (the profiled serve "
+              f"recorded {ran} kernels of {launched} launch calls)")
+    else:
+        print(f"{label} device busy {sv['busy']:.4f} s of a profiled "
+              f"{sv['prof_wall']:.4f} s run ({launched} launches, all "
+              f"recorded): idle share {sv['idle']:.4f}; rmsnorm "
+              f"{sv['rmsnorm_s']:.4f} s, flash {sv['flash_s']:.4f} s (calls "
+              f"{sv['flash_calls']}); top kernels by device time: "
+              + "; ".join(f"{name[:60]} {t:.4f} s" for name, t in sv["top"]))
     split = sv["rmsnorm_split"]
-    rows = {"encoder_shape": p["max_batch"] * p.get("frames", 0),
-            "prefill_shape": p["max_batch"] * (p.get("images", 0)
-                                               + p["prompt_len"]),
-            "decode_shape": p["max_batch"]}
-    print(f"{label} rmsnorm device time by launch shape: " + (
-        "; ".join(f"{k} ({rows[k]} rows) {v['launches']} launches "
-                  f"{v['device_s']:.6f} s = {v['us_per_launch']:.4f} us each"
+    print(f"{label} rmsnorm device time by phase and launch shape: " + (
+        "; ".join(f"{k} {v['launches']} launches {v['device_s']:.6f} s = "
+                  f"{v['us_per_launch']:.4f} us each"
                   for k, v in split.items())
         if split else "not measured (the profiler lost launches)"))
     if "ssd" in sv:
@@ -1876,21 +2032,41 @@ def model_flops_per_step(cfg, params, tokens: int, seq_len: int) -> float:
 
 
 def profile_busy(prof, wall: float) -> dict:
-    """A profiled span's device busy time (every kernel's and copy's self
-    device time; CUPTI's "Command Buffer Full" marks the host waiting on
-    a full launch queue, not device work), its idle share of ``wall``
-    (None when the profiler recorded no device time) and the top kernels."""
+    """A held session's (``start_session``) device time by kernel name, its
+    pads aside, the seconds the host waited on a full launch queue
+    (CUPTI's "Command Buffer Full", not device work), its (launch calls,
+    kernels recorded), and its busy time (every kernel's and copy's
+    device time), idle share of ``wall`` and top kernels: these three
+    None / empty unless the session recorded a kernel for every launch
+    (``_kernel_counts``)."""
+    launched, ran, _ = _kernel_counts(prof, PAD_HEAD + PAD_TAIL)
     by_kernel = {}
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev / 1e6
+    for name, _, ns in _device_events(prof):
+        if PAD_KERNEL not in name:
+            by_kernel[name] = by_kernel.get(name, 0.0) + ns / 1e9
     queue_full = by_kernel.pop("Command Buffer Full", 0.0)
-    busy = sum(by_kernel.values())
-    return {"queue_full_s": queue_full, "prof_wall": wall, "busy": busy,
-            "idle": 1 - busy / wall if by_kernel else None,
-            "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}
+    kept = bool(by_kernel) and launched > 0 and ran == launched
+    busy = sum(by_kernel.values()) if kept else None
+    return {"by_kernel": by_kernel, "queue_full_s": queue_full,
+            "session": (launched, ran), "prof_wall": wall, "busy": busy,
+            "idle": None if busy is None else 1 - busy / wall,
+            "top": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+            if kept else []}
+
+
+def busy_text(b: dict, top: int = 8) -> str:
+    """``profile_busy``'s numbers as printed, with the ``top`` kernels."""
+    launched, ran = b["session"]
+    if b["busy"] is None:
+        return (f"idle share not measured (the session recorded {ran} "
+                f"kernels of {launched} launch calls)")
+    return (f"idle share {b['idle']:.4f} (device busy {b['busy']:.4f} s of "
+            f"{b['prof_wall']:.4f} s; {launched} launches, all recorded); "
+            f"the host waited on a full launch queue for "
+            f"{b['queue_full_s']:.4f} s" + (
+                "; top kernels by device time: " + "; ".join(
+                    f"{name[:60]} {t:.4f} s" for name, t in b["top"][:top])
+                if top else ""))
 
 
 def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
@@ -1904,8 +2080,6 @@ def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
     share and top kernels, memory."""
     import shutil
     import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import convert
     from repro_torch.checkpoint import load_checkpoint
@@ -1942,14 +2116,12 @@ def train_full_width(rmsnorm, p: dict = TRAIN_POINT) -> dict:
             out["flops"] = model_flops_per_step(
                 cfg, params, p["batch"] * p["seq_len"], p["seq_len"])
         if step == p["profile_step"] - 1:
-            torch.cuda.synchronize()
-            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
-            prof["p"].start()
+            prof["p"] = start_session()
             prof["t0"] = time.perf_counter()
         if step == p["profile_step"]:
             torch.cuda.synchronize()
             prof["wall"] = time.perf_counter() - prof["t0"]
-            prof["p"].stop()
+            stop_session(prof["p"])
 
     rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
     trainer = Trainer(cfg, InputShape("train_4k_cut", p["seq_len"],
@@ -2200,14 +2372,7 @@ def print_training(label: str, p: dict, tr: dict) -> None:
           f"checkpoint step {tr['checkpoint']['step']} read back equal "
           f"({tr['checkpoint']['leaves']} leaves, "
           f"{tr['checkpoint']['read_s']:.2f} s)")
-    idle = "not measured (the profiler recorded no device time)" \
-        if tr["idle"] is None else f"{tr['idle']:.4f}"
-    print(f"{label} step {p['profile_step']} profiled: device busy "
-          f"{tr['busy']:.4f} s of {tr['prof_wall']:.4f} s, idle share "
-          f"{idle}; the host waited on a full launch queue for "
-          f"{tr['queue_full_s']:.4f} s; top kernels by device time: "
-          + "; ".join(
-              f"{name[:60]} {t:.4f} s" for name, t in tr["top"]))
+    print(f"{label} step {p['profile_step']} profiled: {busy_text(tr)}")
 
 
 # ------------------------------------------- scheduler-driven training
@@ -2360,8 +2525,6 @@ def cluster_full_width(cluster, pricing, minplus, rmsnorm,
     ``profile_step``-th step profiled for the idle share), peak memory
     (reset at the job's build), the state measured and finite losses;
     launches exact."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.models import concrete_batch
 
@@ -2404,8 +2567,8 @@ def cluster_full_width(cluster, pricing, minplus, rmsnorm,
         if j["prof"] is not None:
             torch.cuda.synchronize()
             j["prof_wall"] = time.perf_counter() - j["prof_t0"]
-            j["prof"].stop()
-            j["busy"] = profile_busy(j["prof"], j["prof_wall"])
+            j["busy"] = profile_busy(stop_session(j["prof"]),
+                                     j["prof_wall"])
             j["prof"] = None
 
     def init(job_id, model, device):
@@ -2422,9 +2585,7 @@ def cluster_full_width(cluster, pricing, minplus, rmsnorm,
         j = jobs[seed // 1000]          # the runtime's seed: job_id * 1000 + ...
         close_step(j)
         if len(j["steps"]) == p["profile_step"]:
-            torch.cuda.synchronize()
-            j["prof"] = profile(activities=[ProfilerActivity.CUDA])
-            j["prof"].start()
+            j["prof"] = start_session()
             j["prof_t0"] = time.perf_counter()
         j["tokens"] = shape.global_batch * shape.seq_len
         j["open"] = mark()
@@ -2500,8 +2661,6 @@ def print_cluster(ex: dict, fw: dict, card: str) -> None:
           f"exact; run wall {fw['wall']:.2f} s [{card}]")
     for jid, j in fw["jobs"].items():
         b = j.get("busy")
-        idle = "not measured (the profiler recorded no device time)" \
-            if b is None or b["idle"] is None else f"{b['idle']:.4f}"
         print(f"  job {jid} ({j['arch']}, slots {j['slots']}, workers "
               f"{j['workers']}, {j['tokens']} tokens a step): state "
               f"reckoned {j['state_gb']:.4f} GB, measured "
@@ -2512,11 +2671,137 @@ def print_cluster(ex: dict, fw: dict, card: str) -> None:
               f"{float(np.median(j['step_ms'])):.3f} ms = "
               f"{j['tok_per_s']:.1f} tokens/s; losses "
               f"{[round(v, 5) for v in j['losses']]}; step "
-              f"{q['profile_step']} profiled: idle share {idle}"
-              + (f", busy {b['busy']:.4f} s of {b['prof_wall']:.4f} s; top "
-                 "kernels " + "; ".join(f"{n[:50]} {t:.4f} s"
-                                        for n, t in b["top"][:5])
-                 if b else ""))
+              f"{q['profile_step']} profiled: "
+              + (busy_text(b, 5) if b else "not profiled"))
+
+
+# ------------------------------------ training a wide model in slabs
+def _finite_nonzero(t: torch.Tensor) -> bool:
+    """Every element of ``t`` finite and one at least non-zero, checked
+    over slabs of its flat view (no temporary of its size)."""
+    parts = t.detach().reshape(-1).split(1 << 26)
+    return all(bool(torch.isfinite(c).all()) for c in parts) and \
+        any(bool(c.ne(0).any()) for c in parts)
+
+
+def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
+    """The point's model at full width cut to ``p["layers"]`` layers,
+    trained on the card with the cluster example's optimizer and train
+    step (``AdamWConfig(lr=1e-3)``: moments in the params' dtype; remat
+    "full", the reference's warm-up) on ``concrete_batch`` batches. The
+    peak is reckoned from ``param_count`` before anything is allocated:
+    params, gradients and moments, the loss head's float32 logits,
+    log-probs and their gradient, and the update's float32 slab
+    temporaries (``optim.adamw.UPDATE_CHUNK`` elements, at most 5 alive).
+    Raises unless every loss is finite, every param has a finite non-zero
+    gradient after the first step and the norm launches are exact.
+    Returns the step times (CUDA events between step ends), tokens/s,
+    model FLOPs, the measured state and peak, and the profiled step's
+    idle share."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import build_model, concrete_batch
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step, train_state
+
+    cfg = point_config(p)
+    opt = AdamWConfig(lr=p["lr"])
+    n = cfg.param_count()
+    tokens = p["batch"] * p["seq_len"]
+    pb = torch.empty((), dtype=cfg.dtype("param")).element_size()
+    mb = 4 if opt.fp32_moments else pb
+    reckoned = {"state": n * 2 * (pb + mb) / 1e9,
+                "loss_head": 3 * 4 * tokens * cfg.vocab_size / 1e9,
+                "slabs": 5 * 4 * adamw.UPDATE_CHUNK / 1e9}
+    reckoned["peak"] = sum(reckoned.values())
+    print(f"training at width: {p['arch']}, a {cfg.num_layers}-layer cut, "
+          f"{n} params; reckoned before allocating: params, gradients and "
+          f"moments {reckoned['state']:.4f} GB + the loss head's float32 "
+          f"logits, log-probs and their gradient {reckoned['loss_head']:.4f}"
+          f" GB + the update's slab temporaries {reckoned['slabs']:.4f} GB ="
+          f" {reckoned['peak']:.4f} GB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    state = train_state(model.init(p["seed"], "cuda"), opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(model, opt)
+    shape = InputShape("train_at_width", p["seq_len"], p["batch"], "train")
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    ends, losses, busy = [], [], None
+    for k in range(p["steps"]):
+        batch = concrete_batch(cfg, shape, seed=k, device="cuda")
+        if k == p["profile_step"]:
+            prof = start_session()
+            t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if k == p["profile_step"]:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            busy = profile_busy(stop_session(prof), wall)
+        losses.append(float(metrics["loss"]))
+        if k == 0:
+            bad = [name for name, q in state["params"].named_parameters()
+                   if q.grad is None or not _finite_nonzero(q.grad)]
+            if bad:
+                raise AssertionError(f"step 0: no finite non-zero gradient "
+                                     f"on {bad}")
+    torch.cuda.synchronize()
+    launches = {"rmsnorm": rmsnorm.LAUNCHES,
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
+    want = expected_train_launches(cfg, p["steps"])
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    params = state["params"]
+    out = dict(layers=cfg.num_layers, params=n, init_s=init_s,
+               losses=losses, launches=launches, reckoned=reckoned,
+               grads_checked=len(dict(params.named_parameters())),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               state_gb=sum(t.numel() * t.element_size() for t in [
+                   *params.parameters(), *(q.grad for q in params.parameters()),
+                   *state["opt"]["m"].values(), *state["opt"]["v"].values()])
+               / 1e9,
+               step_ms=[a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+               flops=model_flops_per_step(cfg, params, tokens,
+                                          p["seq_len"]),
+               busy=busy)
+    steady = float(np.median(out["step_ms"]))
+    out["tok_per_s"] = tokens / steady * 1e3
+    out["mfu"] = out["flops"] / (steady / 1e3) / BF16_OPS_PER_S
+    if not out["peak_gb"] * 1e9 < torch.cuda.get_device_properties(0) \
+            .total_memory:
+        raise AssertionError(f"peak {out['peak_gb']} GB")
+    del state, params, metrics, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_train_at_width(label: str, p: dict, tr: dict, card: str) -> None:
+    r = tr["reckoned"]
+    print(f"{label} ({p['arch']} full width, {tr['layers']} layer, "
+          f"{tr['params']} params, {p['batch']} x {p['seq_len']} tokens, "
+          f"{p['steps']} steps, AdamW lr {p['lr']} with moments in the "
+          f"params' dtype, remat full, bf16 compute): losses "
+          f"{[round(v, 5) for v in tr['losses']]}; every one of "
+          f"{tr['grads_checked']} params has a finite non-zero gradient "
+          f"after step 0; launches {tr['launches']} exact; init "
+          f"{tr['init_s']:.2f} s [{card}]")
+    print(f"{label} step ms (CUDA events, steps 2-{p['steps']}; step "
+          f"{p['profile_step'] + 1} profiled) "
+          f"{[round(v, 3) for v in tr['step_ms']]}, median "
+          f"{float(np.median(tr['step_ms'])):.3f} ms = "
+          f"{tr['tok_per_s']:.1f} tokens/s; model FLOPs a step "
+          f"{tr['flops']:.4e} = {tr['mfu']:.4f} of 989 TFLOP/s; state "
+          f"measured {tr['state_gb']:.4f} GB (reckoned {r['state']:.4f}); "
+          f"peak {tr['peak_gb']:.4f} GB (reckoned {r['peak']:.4f} GB); "
+          f"profiled step: {busy_text(tr['busy'])}")
 
 
 # ------------------------------------------------------------ dry run
@@ -2705,9 +2990,7 @@ def main() -> int:
     print("phases by self time (cuda run): " + ", ".join(
         f"{name} {row['self_s']:.4f} s/{int(row['count'])}"
         for name, row in top))
-    wall_prof, busy = device_busy_share(rt, trace)
-    print(f"device busy {busy:.4f} s of a profiled {wall_prof:.4f} s run: "
-          f"idle share {1 - busy / wall_prof:.4f}")
+    print(f"main path profiled: {busy_text(device_busy_share(rt, trace), 0)}")
 
     # 5. serving path: its kernels against their plain versions
     merr = check_model_kernels(rmsnorm, flash)
@@ -2774,9 +3057,20 @@ def main() -> int:
         rnew[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), one)
         if f"4x{d}" not in rnew:
             rnew[f"4x{d}"] = rmsnorm_numbers(rmsnorm, x[:4].cuda(), one)
+    # the dense GQA serving points: Qwen3-32B's block norms and QK-norm
+    # (4 x 1024 prefill tokens x 64 query heads and x 8 kv heads; the 4
+    # decode rows likewise), Command R+'s block norms
+    rwide = {}
+    for N, d in ((4096, 5120), (4, 5120), (262144, 128), (32768, 128),
+                 (256, 128), (32, 128), (4096, 12288), (4, 12288)):
+        x = (torch.randn((N, d), generator=gen) * 3).to(torch.bfloat16)
+        scale = (torch.randn((d,), generator=gen) + 1).cuda()
+        rwide[f"{N}x{d}"] = rmsnorm_numbers(rmsnorm, x.cuda(), scale)
     # Qwen3-32B's QK-norm in the cluster phase: 16 x 64 tokens x 64 query
-    # heads and x 8 kv heads, rows of its head width 128, both directions
-    fresh = bwd_device_times(((65536, 128), (8192, 128), (8192, 3072)))
+    # heads and x 8 kv heads, rows of its head width 128, both directions;
+    # Command R+'s training rows (16 x 64 tokens at d 12,288)
+    fresh = bwd_device_times(((65536, 128), (8192, 128), (8192, 3072),
+                              (1024, 12288)))
     rqk, bqk = {}, {}
     for N in (65536, 8192):
         x = (torch.randn((N, 128), generator=gen) * 3).to(torch.bfloat16)
@@ -2792,8 +3086,15 @@ def main() -> int:
     scale = (torch.randn((3072,), generator=gen) + 1).cuda()
     bnum_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda(),
                                      fresh["8192x3072"])
+    # Command R+'s training rows, forward and backward
+    x = (torch.randn((1024, 12288), generator=gen) * 3).to(torch.bfloat16)
+    dy = torch.randn((1024, 12288), generator=gen).to(torch.bfloat16)
+    scale = (torch.randn((12288,), generator=gen) + 1).cuda()
+    rcmdr_train = rmsnorm_numbers(rmsnorm, x.cuda(), scale)
+    bcmdr_train = rmsnorm_bwd_numbers(rmsnorm, x.cuda(), scale, dy.cuda(),
+                                      fresh["1024x12288"])
     del x, dy
-    for f in (bnum_train, *bqk.values()):
+    for f in (bnum_train, *bqk.values(), bcmdr_train):
         print(f"rmsnorm_bwd {f['shape']} {f['dtype']}: device "
               f"{f['device_ms']} ms (both passes, a fresh process), events "
               f"{f['ms']} ms, "
@@ -2802,7 +3103,7 @@ def main() -> int:
               f"{f['library_ms']} ms, its device time "
               f"{f['library_device_ms']} ms")
     for f in (rnum, rdec, rtrain, rmoe, rmoe_dec, *rmla.values(),
-              *rnew.values(), *rqk.values()):
+              *rnew.values(), *rqk.values(), *rwide.values(), rcmdr_train):
         print(f"rmsnorm {f['shape']} {f['dtype']}: device {f['device_ms']} "
               f"ms, events {f['ms']} ms, {f['bound_ms']} ms {f['bound_by']} "
               f"bound; plain {f['plain_ms']} ms, F.rms_norm "
@@ -2812,11 +3113,15 @@ def main() -> int:
     fnum = flash_numbers(flash, q, k, v)       # Gemma-7B prefill, bf16
     fnum["float32"] = flash_numbers(flash, q.float(), k.float(), v.float())
     del q, k, v
-    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
-               for shape in ((2, 1024, 64, 128), (2, 1024, 8, 128),
-                             (2, 1024, 8, 128)))
-    fnum["qwen3_32b"] = flash_numbers(flash, q, k, v)
-    del q, k, v
+    # the dense GQA serving points' prefill: Qwen3-32B's 64 query heads
+    # and Command R+'s 96 (a group of 12) over 8 kv heads of 128
+    fgqa = {}
+    for key, H in (("qwen3_32b", 64), ("command_r_plus", 96)):
+        q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+                   .cuda() for shape in ((4, 1024, H, 128), (4, 1024, 8, 128),
+                                         (4, 1024, 8, 128)))
+        fgqa[key] = flash_numbers(flash, q, k, v)
+        del q, k, v
     q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
                for shape in ((4, 1024, 32, 128), (4, 1024, 8, 128),
                              (4, 1024, 8, 128)))
@@ -2848,7 +3153,8 @@ def main() -> int:
         del q, k, v
     for label, f in (("bf16, tensor cores", fnum),
                      ("float32, CUDA cores", fnum["float32"]),
-                     ("bf16 at Qwen3-32B's heads", fnum["qwen3_32b"]),
+                     ("bf16 at Qwen3-32B's prefill", fgqa["qwen3_32b"]),
+                     ("bf16 at Command R+'s prefill", fgqa["command_r_plus"]),
                      ("bf16 at Phi-3.5-MoE's prefill", fmoe),
                      ("bf16 at LLaVA-NeXT's prefill", fvlm),
                      *((f"{f['dtype']}, {name}", f)
@@ -2888,6 +3194,13 @@ def main() -> int:
     fw = cluster_full_width(cluster, pricing, minplus, rmsnorm)
     print_cluster(ex, fw, card)
     print(f"cluster phase wall {time.perf_counter() - t0:.2f} s")
+
+    # 8a'''. Command R+ at full width, 1 layer, trained with the update in
+    # slabs
+    t0 = time.perf_counter()
+    tw = train_at_width(rmsnorm)
+    print_train_at_width("training at width", CMDR_TRAIN_POINT, tw, card)
+    print(f"training at width phase wall {time.perf_counter() - t0:.2f} s")
 
     # 8a'. the dry run: the production plans at full width and depth on
     # fake 256- and 512-GPU meshes, and the one-card plan of the training
@@ -2933,6 +3246,10 @@ def main() -> int:
     # kernel's timing sessions
     served, parities = {}, {}
     for key, label, point, parity in (
+            ("qwen3_32b", "qk-norm serving", QWEN3_SERVE_POINT,
+             QWEN3_PARITY_POINT),
+            ("command_r_plus", "wide serving", CMDR_SERVE_POINT,
+             CMDR_PARITY_POINT),
             ("minicpm3_4b", "mla serving", MLA_SERVE_POINT,
              MLA_PARITY_POINT),
             ("llava_next", "vision serving", VLM_SERVE_POINT,
@@ -2974,9 +3291,7 @@ def main() -> int:
     print("online sim phases by self time (cuda run): " + ", ".join(
         f"{name} {row['self_s']:.4f} s/{int(row['count'])}"
         for name, row in on["top"]))
-    print(f"online sim device busy {on['busy']:.4f} s of a profiled "
-          f"{on['prof_wall']:.4f} s pdors run: idle share "
-          f"{1 - on['busy'] / on['prof_wall']:.4f}")
+    print(f"online sim profiled pdors run: {busy_text(on['busy'], 0)}")
     (ores, owall, olaunch), (cres, cwall, _) = on["oasis"]["cuda"], \
         on["oasis"]["cpu"]
     print(f"OASiS (Fig. 6 point, R=6): admitted {len(ores.admitted)}/"
@@ -3049,14 +3364,20 @@ def main() -> int:
           f"{lat['p99_ms']:.3f} ms mean {lat['mean_ms']:.3f} ms; launches "
           f"{sv2['launches']}")
     cp = chaos_profiled(launch_sim, trace)
-    print(f"chaos device busy {cp['busy']:.4f} s of a profiled "
-          f"{cp['wall']:.4f} s pdors run: idle share "
-          + (f"{1 - cp['busy'] / cp['wall']:.4f}" if cp["busy"] > 0 else
-             "not measured (the profiler recorded no device time)"))
+    print(f"chaos profiled pdors run: {busy_text(cp['busy'], 0)}")
     print("chaos phases by self time (profiled cuda run): " + ", ".join(
         f"{name} {row['self_s']:.4f} s/{int(row['count'])}"
         for name, row in cp["top"]))
     paths = {"chaos": ch, "recover": rc, "elastic": el, "service": sv2}
+    wide_norms = {
+        "qwen3_32b": {"prefill_shape": rwide["4096x5120"],
+                      "decode_shape": rwide["4x5120"],
+                      "qk_norm": {k: rwide[k] for k in (
+                          "262144x128", "32768x128", "256x128", "32x128")}},
+        "command_r_plus": {"prefill_shape": rwide["4096x12288"],
+                           "decode_shape": rwide["4x12288"],
+                           "train_launches": tw["launches"]["rmsnorm"],
+                           "train_shape": rcmdr_train}}
 
     kernels = [
         {"name": "price_bundle", "route": "cuda",
@@ -3089,7 +3410,8 @@ def main() -> int:
                        "prefill_shape": rmoe, "decode_shape": rmoe_dec,
                        "serving_split": moe_sv["rmsnorm_split"]},
          **{key: {"launches": sv_["launches"]["rmsnorm"],
-                  "serving_split": sv_["rmsnorm_split"]}
+                  "serving_split": sv_["rmsnorm_split"],
+                  **wide_norms.get(key, {})}
             for key, sv_ in served.items()},
          "mla_norms": rmla, "ssm_hybrid_encdec_norms": rnew,
          "gemma_7b_train": {"launches": tr["launches"]["rmsnorm"],
@@ -3108,7 +3430,9 @@ def main() -> int:
          "cluster": {"example_launches": ex["train_launches"]["rmsnorm_bwd"],
                      "full_width_launches":
                      fw["train_launches"]["rmsnorm_bwd"],
-                     "qwen3_qk_norm": bqk}},
+                     "qwen3_qk_norm": bqk},
+         "command_r_plus_train": {"launches": tw["launches"]["rmsnorm_bwd"],
+                                  **bcmdr_train}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",
@@ -3117,6 +3441,8 @@ def main() -> int:
          **{k: v for k, v in fnum.items() if k != "float32"},
          "phi35_moe": {"launches": moe_sv["launches"]["flash_attention"],
                        **fmoe},
+         **{key: {"launches": served[key]["launches"]["flash_attention"],
+                  **f} for key, f in fgqa.items()},
          "llava_next": {"launches":
                         served["llava_next"]["launches"]["flash_attention"],
                         **fvlm},

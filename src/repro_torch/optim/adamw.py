@@ -17,6 +17,13 @@ Params, grads and moments are flat dicts of tensors by parameter name
 (``dict(module.named_parameters())``). Where the reference returns new
 trees, ``adamw_update`` writes the params and moments IN PLACE (the
 values are the same): a full-width model's state does not fit twice.
+Nor do its float32 temporaries: the update runs over slabs of
+``UPDATE_CHUNK`` elements of each tensor's flat view, and the global
+norm sums each tensor's squares in the same slabs, so no float32 copy
+of a whole tensor is made (a 256,000 x 12,288 table would need 12.6 GB
+for each). The update is elementwise, so its params and moments are
+bit for bit those of one piece; a tensor of at most one slab sums its
+squares as one piece, a larger one in slab order.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ from typing import Dict, Mapping, Tuple, Union
 import torch
 
 Tensors = Mapping[str, torch.Tensor]
+
+#: elements of a tensor updated (and squared for the norm) at a time
+UPDATE_CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -54,10 +64,31 @@ def adamw_init(params: Tensors, cfg: AdamWConfig) -> Dict:
     }
 
 
+def _slabs(t: torch.Tensor, what: str) -> tuple:
+    """``t``'s flat view in slabs of ``UPDATE_CHUNK`` elements. A tensor
+    of at most one slab is one slab as it is, and so is a DTensor of the
+    dry run's plan (its shards do not flatten; it holds no memory). A
+    copy would cost the memory the slabs save, so a larger tensor that is
+    not contiguous raises."""
+    from torch.distributed.tensor import DTensor
+    if t.numel() <= UPDATE_CHUNK or isinstance(t, DTensor):
+        return (t,)
+    if not t.is_contiguous():
+        raise ValueError(f"{what} of shape {tuple(t.shape)} is not "
+                         f"contiguous: AdamW updates its flat view in place")
+    return t.view(-1).split(UPDATE_CHUNK)
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of ``g``'s squares, slab by slab in order
+    (``_slabs``): a tensor of one slab in one piece."""
+    return sum(torch.sum(torch.square(part.to(torch.float32)))
+               for part in _slabs(g, "a gradient"))
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tensors.values()))
+    return torch.sqrt(sum(_square_sum(g) for g in tensors.values()))
 
 
 @torch.no_grad()
@@ -80,18 +111,22 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict,
                                   device=t.device)
 
     for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g32 = grads[name].to(torch.float32) * clip
-        m32 = m.to(torch.float32) * b1
-        m32.add_((1 - b1) * g32)
-        v32 = v.to(torch.float32) * b2
-        v32.add_((1 - b2) * torch.square(g32))
-        del g32
-        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
-        m.copy_(m32)
-        v.copy_(v32)
-        del m32, v32
-        delta.add_(cfg.weight_decay * p.to(torch.float32))
-        p.copy_(p.to(torch.float32) - lr * delta)
+        slabs = zip(*(_slabs(x, f"{what} {name!r}")
+                      for what, x in (("param", p), ("gradient", grads[name]),
+                                      ("m", state["m"][name]),
+                                      ("v", state["v"][name]))))
+        for p_, g, m, v in slabs:
+            g32 = g.to(torch.float32) * clip
+            m32 = m.to(torch.float32) * b1
+            m32.add_((1 - b1) * g32)
+            v32 = v.to(torch.float32) * b2
+            v32.add_((1 - b2) * torch.square(g32))
+            del g32
+            delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
+            m.copy_(m32)
+            v.copy_(v32)
+            del m32, v32
+            delta.add_(cfg.weight_decay * p_.to(torch.float32))
+            p_.copy_(p_.to(torch.float32) - lr * delta)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -10,7 +10,10 @@ reduced serving path (dense, MoE, MLA, vision, Mamba-2, Hymba and
 SeamlessM4T) launching the model kernels and answering as the CPU run
 does; rmsnorm's backward kernel against its plain version, its autograd
 function reaching a float32 and a bf16 scale, raising on a failed
-build, and a reduced train step on the card matching the CPU's; one full-width MoE layer routing as the CPU does, and one
+build, and a reduced train step on the card matching the CPU's; AdamW's
+update in slabs writing what one piece writes, bit for bit; one train
+step of Command R+ at full width (1 layer, its vocab cut) matching the
+CPU's; one full-width MoE layer routing as the CPU does, and one
 full-width MLA layer of each MLA config, one Hymba block and one
 SeamlessM4T decoder block computing as the CPU does; the dry run's
 one-card plan of a reduced train step counting the real step's FLOPs
@@ -269,6 +272,9 @@ def _tol(dtype):
     # rows, single rows
     (16, 12288), (33, 5120), (7, 1536), (300, 1), (1, 3072), (1, 12288),
     (1, 50),
+    # Command R+'s serving rows (4 x 1024 prompt tokens, 4 decode rows)
+    # and its training rows (16 x 64 tokens)
+    (4096, 12288), (4, 12288), (1024, 12288),
     # MLA's q_norm / kv_norm on the prefill and decode rows: MiniCPM3
     # (768, 256) and DeepSeek-V2 (1536, 512)
     (4096, 768), (4096, 256), (2048, 1536), (2048, 512), (4, 768),
@@ -363,6 +369,7 @@ def _bwd_case(gen, N, d, dtype, cuda):
     # and the cluster's reduced rows
     (0, 128), (0, 3072), (1, 128), (5, 128), (8191, 128), (65535, 128),
     (8191, 3072), (1024, 5120), (1024, 12288), (1024, 256), (4096, 32),
+    (4, 12288), (16, 12288),
 ])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, d, dtype):
     gen = torch.Generator().manual_seed(N + d)
@@ -504,6 +511,94 @@ def test_reduced_training_on_the_card_matches_cpu(cuda):
             want.abs().max()), n
 
 
+def _one_piece_norm(tensors):
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tensors.values()))
+
+
+@pytest.mark.parametrize("dtype,fp32_moments", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
+def test_adamw_slabs_equal_one_piece_on_the_card(cuda, monkeypatch, dtype,
+                                                 fp32_moments):
+    """Three AdamW steps with the update in slabs of 4099 elements (no
+    size here divides) write the params and moments of the one-piece
+    update bit for bit, given the same grad norm; the slabbed norm is
+    the one-piece norm within rel 1e-6."""
+    from repro_torch.optim import AdamWConfig, adamw, adamw_init, \
+        adamw_update, global_norm
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = {"table": (1000, 257), "w": (33, 17), "b": (7,)}
+    p0 = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    g0 = {n: torch.randn(s, generator=gen) * 0.5 for n, s in shapes.items()}
+    cfg = AdamWConfig(fp32_moments=fp32_moments)
+    one = _one_piece_norm({n: g.to(cuda) for n, g in g0.items()})
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 4099)
+    slabbed = global_norm({n: g.to(cuda) for n, g in g0.items()})
+    assert abs(float(slabbed) - float(one)) <= 1e-6 * float(one)
+    monkeypatch.setattr(adamw, "global_norm", _one_piece_norm)
+    runs = []
+    for size in (1 << 26, 4099):
+        monkeypatch.setattr(adamw, "UPDATE_CHUNK", size)
+        params = {n: t.to(dtype).to(cuda) for n, t in p0.items()}
+        state = adamw_init(params, cfg)
+        for step in range(3):
+            grads = {n: (g * (step + 1)).to(dtype).to(cuda)
+                     for n, g in g0.items()}
+            params, state, _ = adamw_update(params, grads, state, cfg,
+                                            torch.tensor(0.5, device=cuda))
+        runs.append((params, state))
+    (p1, s1), (p2, s2) = runs
+    for n in shapes:
+        for a, b in ((p1[n], p2[n]), (s1["m"][n], s2["m"][n]),
+                     (s1["v"][n], s2["v"][n])):
+            assert a.dtype == b.dtype and torch.equal(a, b), n
+
+
+def test_full_width_command_r_plus_step_matches_cpu(cuda):
+    """One train step of Command R+ at full width (d 12,288, 96 query
+    heads over 8 kv heads, d_ff 33,792) cut to 1 layer and a vocab of
+    1024, float32 (TF32 off), on the card and on the CPU from the same
+    weights and batch: the loss to rel 1e-5, every gradient finite,
+    non-zero and within 1e-4 of its tensor's largest CPU gradient; the
+    norms' launches exact."""
+    import dataclasses
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import concrete_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step, train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("command-r-plus-104b"),
+                              num_layers=1, vocab_size=1024,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3)
+    gpu = model.init(0, cuda)
+    cpu = type(gpu)(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    batch = concrete_batch(cfg, InputShape("t", 64, 2, "train"), seed=0,
+                           device="cpu")
+    out = {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+        _, metrics = make_train_step(model, opt)(
+            train_state(params, opt),
+            {k: v.to(name) for k, v in batch.items()})
+        out[name] = (float(metrics["loss"]),
+                     {n: q.grad.cpu() for n, q in params.named_parameters()},
+                     (rmsnorm.LAUNCHES, rmsnorm.LAUNCHES_BWD))
+        del metrics
+    assert out["cuda"][2] == (3 + 2, 3) and out["cpu"][2] == (0, 0)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, g in out["cuda"][1].items():
+        want = out["cpu"][1][n]
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), n
+        assert float((g - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), n
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S_q,S_k,H,KV,D,causal,window", [
     (2, 256, 256, 4, 4, 256, True, 0),
@@ -520,6 +615,7 @@ def test_reduced_training_on_the_card_matches_cpu(cuda):
     (1, 2048, 2048, 25, 5, 64, True, 1024),  # Hymba's sliding window
     (1, 128, 1600, 16, 16, 64, False, 0),  # SeamlessM4T's cross-attention
     (1, 1600, 1600, 16, 16, 64, False, 0),  # and its encoder
+    (2, 256, 256, 96, 8, 128, True, 0),    # Command R+'s group of 12
 ])
 def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
                                     window, dtype):

@@ -78,7 +78,8 @@ def _imported_roots(path: Path):
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "offer_kernels_ab.py",
-        ROOT / "scripts" / "rmsnorm_bwd_ab.py"]
+        ROOT / "scripts" / "rmsnorm_bwd_ab.py",
+        ROOT / "scripts" / "profiler_sessions.py"]
     offenders = [(str(p.relative_to(ROOT)), name) for p in files
                  for name in _imported_roots(p)
                  if name in ("jax", "jaxlib", "repro")]

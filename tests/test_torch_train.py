@@ -36,6 +36,7 @@ from repro_torch.data import DataConfig, SyntheticLM, make_source
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import build_model, lm
 from repro_torch.models.attention import grouped_attention
+from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim import (
     AdamWConfig,
     adamw_init,
@@ -401,6 +402,87 @@ def test_adamw_bf16_params_keep_bf16_moments():
 def test_global_norm():
     t = {"a": torch.tensor([3.0]), "b": torch.tensor([[4.0]])}
     assert float(global_norm(t)) == 5.0
+
+
+def _one_piece_norm(tensors):
+    """``global_norm`` before the slabs: each tensor's squares summed in
+    one piece."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tensors.values()))
+
+
+def _slab_case(seed, dtype):
+    """Params and grads whose sizes no slab of 7 divides (221 = 31 x 7 +
+    4), one of a slab or less, and a 0-d one."""
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (13, 17), "b": (5,), "c": (2, 3, 4), "d": ()}
+    p = {n: torch.from_numpy(np.asarray(rng.normal(size=s), np.float32))
+         .to(dtype) for n, s in shapes.items()}
+    g = {n: torch.from_numpy(np.asarray(rng.normal(size=s) * 0.5, np.float32))
+         for n, s in shapes.items()}
+    return p, g
+
+
+@pytest.mark.parametrize("chunk", [1, 7])
+@pytest.mark.parametrize("dtype,fp32_moments", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True),
+    (torch.float32, True)])
+@pytest.mark.parametrize("grad_clip", [1.0, 100.0])
+def test_adamw_slabs_equal_one_piece(monkeypatch, chunk, dtype, fp32_moments,
+                                     grad_clip):
+    """Three steps of the update in slabs of ``chunk`` elements write the
+    params and both moments of the one-piece update bit for bit, given
+    the same grad norm (the one-piece sum; the slabbed norm is held
+    below)."""
+    cfg = AdamWConfig(grad_clip=grad_clip, fp32_moments=fp32_moments)
+    monkeypatch.setattr(adamw_mod, "global_norm", _one_piece_norm)
+    runs = []
+    for size in (adamw_mod.UPDATE_CHUNK, chunk):
+        monkeypatch.setattr(adamw_mod, "UPDATE_CHUNK", size)
+        params, g = _slab_case(3, dtype)
+        state = adamw_init(params, cfg)
+        for step in range(3):
+            grads = {n: (a * (step + 1)).to(dtype) for n, a in g.items()}
+            params, state, m = adamw_update(params, grads, state, cfg,
+                                            torch.tensor(0.5 + 0.25 * step))
+        runs.append((params, state, m))
+    (p1, s1, m1), (p2, s2, m2) = runs
+    assert (float(m1["grad_norm"]) > grad_clip) == (grad_clip == 1.0)
+    for n in p1:
+        for a, b in ((p1[n], p2[n]), (s1["m"][n], s2["m"][n]),
+                     (s1["v"][n], s2["v"][n])):
+            assert a.dtype == b.dtype and torch.equal(a, b), n
+    assert int(s1["step"]) == int(s2["step"]) == 3
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_global_norm_in_slabs(monkeypatch, chunk):
+    """The norm summed slab by slab is the one-piece norm within rel 1e-6,
+    and equal to it where every tensor fits one slab."""
+    rng = np.random.default_rng(4)
+    tensors = {"a": torch.from_numpy(rng.normal(size=(13, 17))
+                                     .astype(np.float32)),
+               "b": torch.from_numpy(rng.normal(size=(5,)).astype(np.float32)),
+               "c": torch.from_numpy(rng.normal(size=(40,))
+                                     .astype(np.float32)).to(torch.bfloat16),
+               "d": torch.tensor(2.5)}
+    want = _one_piece_norm(tensors)
+    monkeypatch.setattr(adamw_mod, "UPDATE_CHUNK", chunk)
+    got = global_norm(tensors)
+    assert abs(float(got) - float(want)) <= 1e-6 * float(want)
+    small = {n: t for n, t in tensors.items() if t.numel() <= chunk}
+    assert small and torch.equal(global_norm(small), _one_piece_norm(small))
+
+
+def test_adamw_refuses_a_non_contiguous_gradient(monkeypatch):
+    """A slab is a view: a gradient of more than one slab that has no
+    flat view raises, uncopied."""
+    monkeypatch.setattr(adamw_mod, "UPDATE_CHUNK", 5)
+    params = {"a": torch.zeros((3, 4))}
+    grads = {"a": torch.ones((4, 3)).t()}
+    state = adamw_init(params, AdamWConfig())
+    with pytest.raises(ValueError, match="not contiguous"):
+        adamw_update(params, grads, state, AdamWConfig())
 
 
 @pytest.mark.parametrize("total,warmup,final", [(100, 10, 0.1), (7, 0, 0.0),
