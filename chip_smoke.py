@@ -44,7 +44,9 @@ paths:
     share, spans by self time);
   * the serving path: the rmsnorm and flash-attention kernels (bf16 on
     the tensor cores, float32 on the CUDA cores) against their plain
-    versions on the card, then Gemma-7B at full width and
+    versions on the card (the bf16 kernel also at its edges in both of
+    its instances, each call repeated bit for bit, and on unaligned
+    inputs), then Gemma-7B at full width and
     full depth (28 layers, random weights from seed 0, float32 params,
     bfloat16 compute) serving 8 requests of 1024 prompt tokens and 32
     new tokens, max_batch 4, greedy, through ``ServeEngine.serve``, with
@@ -1051,6 +1053,23 @@ def _max_err(got: torch.Tensor, want: torch.Tensor, what: str, **tol) -> float:
     return float((g - w).abs().max())
 
 
+#: the bf16 flash kernel's edges (B, S_q, S_k, H, KV, D, causal, window):
+#: S_q and S_k off every tile, S_k under one key tile, D 72, 80 and 40
+#: (padded buckets, a box wider than the row), query groups of 5, 8 and
+#: 12, window edges inside tiles, window 1, rows with no allowed key, the
+#: 128 x 1600 cross-attention
+TC_EDGES = (
+    (1, 200, 333, 4, 4, 128, False, 0), (2, 300, 300, 4, 2, 64, True, 0),
+    (1, 130, 70, 2, 2, 256, False, 0), (2, 100, 40, 4, 4, 128, True, 0),
+    (1, 257, 257, 8, 8, 72, True, 0), (1, 200, 200, 4, 2, 80, False, 0),
+    (1, 136, 136, 2, 2, 40, True, 0), (2, 256, 256, 5, 1, 64, True, 0),
+    (1, 384, 384, 16, 2, 128, True, 0), (1, 256, 256, 24, 2, 256, True, 0),
+    (1, 512, 512, 4, 4, 128, True, 100), (1, 520, 520, 4, 2, 256, True, 200),
+    (1, 300, 300, 2, 2, 64, False, 77), (1, 256, 256, 4, 4, 128, True, 1),
+    (1, 300, 100, 2, 2, 64, False, 8), (4, 128, 1600, 16, 16, 64, False, 0),
+)
+
+
 def check_model_kernels(rmsnorm, flash) -> dict:
     """rmsnorm and flash attention against their plain versions on the
     card, at the serving path's shapes and the edge cases; returns the
@@ -1131,6 +1150,44 @@ def check_model_kernels(rmsnorm, flash) -> dict:
                 flash.flash_attention_torch(q, k, v, causal, window),
                 f"flash {(B, S_q, S_k, H, KV, D)} causal={causal} "
                 f"window={window} {name}", **tol))
+    # the bf16 kernel's edges in both of its instances (the pick by shape
+    # moved by SM_COUNT): within bf16 2e-2 of the plain version, and bit
+    # for bit the same on a second call
+    saved = flash.SM_COUNT
+    try:
+        for sm_count, q_rows in ((1, 128), (1 << 30, 64)):
+            flash.SM_COUNT = sm_count
+            for B, S_q, S_k, H, KV, D, causal, window in TC_EDGES:
+                if flash.tc_tiles(B, S_q, H, D).q_rows != q_rows:
+                    raise AssertionError(f"{(B, S_q, H, D)} did not pick "
+                                         f"the {q_rows}-row instance")
+                q, k, v = (torch.randn(shape, generator=gen)
+                           .to(torch.bfloat16).to(dev)
+                           for shape in ((B, S_q, H, D), (B, S_k, KV, D),
+                                         (B, S_k, KV, D)))
+                what = (f"flash bf16 edge {(B, S_q, S_k, H, KV, D)} causal="
+                        f"{causal} window={window} rows={q_rows}")
+                got = flash.flash_attention_cuda(q, k, v, causal, window)
+                err["flash_attention"] = max(err["flash_attention"], _max_err(
+                    got, flash.flash_attention_torch(q, k, v, causal, window),
+                    what, rtol=2e-2, atol=2e-2))
+                _equal(got.float(), flash.flash_attention_cuda(
+                    q, k, v, causal, window).float(), what + " repeated")
+    finally:
+        flash.SM_COUNT = saved
+    # bf16 q, k, v 2 bytes off a 16-byte boundary: staged into aligned
+    # buffers for the same kernel
+    for D in (64, 128, 256):
+        shape = (1, 192, 4, D)
+        n = int(np.prod(shape))
+        q, k, v = (torch.randn((n + 1,), generator=gen).to(torch.bfloat16)
+                   .to(dev)[1:].view(shape) for _ in range(3))
+        if flash.vector_loads(D, q, k, v):
+            raise AssertionError("offset bf16 inputs passed as aligned")
+        err["flash_attention"] = max(err["flash_attention"], _max_err(
+            flash.flash_attention_cuda(q, k, v),
+            flash.flash_attention_torch(q, k, v), f"flash bf16 unaligned {D}",
+            rtol=2e-2, atol=2e-2))
     # float32 q, k, v 4 bytes off a 16-byte boundary: element-wise loader
     shape = (1, 160, 4, 256)
     n = int(np.prod(shape))
@@ -1456,11 +1513,10 @@ def profiled_serve(engine, cfg, p: dict, reqs: list, want: dict) -> tuple:
     for name, _, _ in _device_events(prof):
         if "flash_fwd_kernel" in name:
             flash_calls[name] = flash_calls.get(name, 0) + 1
-    # every GQA prefill's attention ran on the tensor-core kernel; MLA
-    # and the SSM run none
+    # every GQA prefill's attention ran on the tensor-core kernel (in
+    # the instances its shapes pick); MLA and the SSM run none
     if want["flash_attention"] and (
-            len(flash_calls) != 1 or
-            "flash_fwd_kernel_tc" not in next(iter(flash_calls)) or
+            any("flash_fwd_kernel_tc" not in k for k in flash_calls) or
             sum(flash_calls.values()) != want["flash_attention"]) or \
             not want["flash_attention"] and flash_calls:
         raise AssertionError(f"profiled serving run's attention kernels "

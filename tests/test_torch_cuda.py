@@ -630,10 +630,13 @@ def test_flash_kernel_matches_plain(cuda, B, S_q, S_k, H, KV, D, causal,
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
                                      (torch.float32, 256),
-                                     (torch.float32, 80)])
+                                     (torch.float32, 80),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 256)])
 def test_flash_kernel_unaligned_inputs_match_plain(cuda, dtype, D):
-    """q, k, v one element (2 or 4 bytes) off a 16-byte boundary: either
-    kernel takes its element-wise loader."""
+    """q, k, v one element (2 or 4 bytes) off a 16-byte boundary: the
+    float32 kernel takes its element-wise loader, the bf16 wrapper copies
+    them into aligned buffers for the same TMA kernel."""
     gen = torch.Generator().manual_seed(8 + D)
     shape = (1, 192, 4, D)
     n = int(np.prod(shape))
@@ -655,6 +658,65 @@ def test_flash_kernel_is_deterministic(cuda, dtype):
     first = flash_attention.flash_attention_cuda(q, k, v)
     second = flash_attention.flash_attention_cuda(q, k, v)
     _equal(first.float(), second.float())
+
+
+#: the bf16 kernel's edges: (B, S_q, S_k, H, KV, D, causal, window)
+TC_EDGES = [
+    (1, 200, 333, 4, 4, 128, False, 0),    # S_q, S_k off every tile
+    (2, 300, 300, 4, 2, 64, True, 0),
+    (1, 130, 70, 2, 2, 256, False, 0),     # S_k under one 64-key tile
+    (2, 100, 40, 4, 4, 128, True, 0),      # under one 128-key tile, S_q > S_k
+    (1, 257, 257, 8, 8, 72, True, 0),      # D 72 and 80: the 128 bucket
+    (1, 200, 200, 4, 2, 80, False, 0),
+    (1, 136, 136, 2, 2, 40, True, 0),      # D 40: a box wider than the row
+    (2, 256, 256, 5, 1, 64, True, 0),      # query groups of 5, 8 and 12
+    (1, 384, 384, 16, 2, 128, True, 0),
+    (1, 256, 256, 24, 2, 256, True, 0),
+    (1, 512, 512, 4, 4, 128, True, 100),   # window edges inside tiles
+    (1, 520, 520, 4, 2, 256, True, 200),
+    (1, 300, 300, 2, 2, 64, False, 77),    # a window without the mask
+    (1, 256, 256, 4, 4, 128, True, 1),     # window 1
+    (1, 300, 100, 2, 2, 64, False, 8),     # rows with no allowed key
+    (4, 128, 1600, 16, 16, 64, False, 0),  # SeamlessM4T's cross-attention
+]
+
+
+@pytest.mark.parametrize("q_rows", [64, 128])
+@pytest.mark.parametrize("B,S_q,S_k,H,KV,D,causal,window", TC_EDGES)
+def test_tc_kernel_edges_match_plain(cuda, monkeypatch, q_rows, B, S_q,
+                                     S_k, H, KV, D, causal, window):
+    """The bf16 kernel at its edges, in both instances (the pick by
+    shape moved by ``SM_COUNT``): within bf16 2e-2 of the plain version,
+    one launch a call, and bit for bit the same on a second call."""
+    monkeypatch.setattr(flash_attention, "SM_COUNT",
+                        1 if q_rows == 128 else 1 << 30)
+    assert flash_attention.tc_tiles(B, S_q, H, D).q_rows == q_rows
+    gen = torch.Generator().manual_seed(S_q * H + D + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16).to(cuda)
+               for shape in ((B, S_q, H, D), (B, S_k, KV, D),
+                             (B, S_k, KV, D)))
+    launches = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention_cuda(q, k, v, causal, window)
+    again = flash_attention.flash_attention_cuda(q, k, v, causal, window)
+    assert flash_attention.LAUNCHES == launches + 2
+    want = flash_attention.flash_attention_torch(q, k, v, causal, window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+    _equal(got.float(), again.float())
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_tc_kernel_is_deterministic_at_each_bucket(cuda, D):
+    """Every sum in a fixed order: two launches agree bit for bit at each
+    padded width, causal and not, in the instance the shape picks."""
+    gen = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn((2, 1000, 32, D), generator=gen)
+               .to(torch.bfloat16).to(cuda) for _ in range(3))
+    assert flash_attention.tc_tiles(2, 1000, 32, D).q_rows == 128
+    for causal in (True, False):
+        first = flash_attention.flash_attention_cuda(q, k, v, causal)
+        second = flash_attention.flash_attention_cuda(q, k, v, causal)
+        _equal(first.float(), second.float())
 
 
 @pytest.mark.parametrize("dtype,tensor_cores", [(torch.bfloat16, True),

@@ -169,48 +169,160 @@ def _bf16(a):
         .astype(np.float32)
 
 
-def _tc_arithmetic(q, k, v, BK):
-    """The tensor-core kernel's arithmetic on (BH, S, D) bf16 values,
-    causal: float32 scores in 64-row query tiles and BK-key tiles, the
-    online softmax in the log2 domain, p rounded to bf16 before p.v, the
-    output rounded once to bf16."""
-    BH, S, D = q.shape
+def _key_range(r0, r1, S_k, causal, window):
+    """The kernel's ``key_range``: keys [kb, ke) holding every allowed key
+    of rows r0..r1, all of them when row r1 has none."""
+    if window > 0 and r1 - window >= S_k - 1:
+        return 0, S_k
+    ke = min(S_k, r1 + 1) if causal else S_k
+    kb = max(0, r0 - window + 1) if window > 0 else 0
+    return kb, ke
+
+
+def _tc_arithmetic(q, k, v, causal=True, window=0):
+    """The bf16 kernel's arithmetic on (BH, S_q, D) / (BH, S_k, D) bf16
+    values: each consumer's 64 query rows walk their own key tiles of the
+    bucket's width (128 keys, 64 at D = 256), aligned to multiples of it
+    and cut at S_k; float32 scores; a tile crossing the diagonal, the
+    window edge or S_k takes index masks (-1e30) on the scaled scores,
+    any other the row max of the raw scores and s * scale - m in one
+    rounding (an FMA); the online softmax in the log2 domain, p rounded to
+    bf16 before p.v, the output acc times 1 / max(l, 1e-30) rounded once
+    to bf16."""
+    BH, S_q, D = q.shape
+    S_k = k.shape[1]
+    BK = fa.TC_TILES[(fa.padded_head_dim(D), 128)].k_rows
     scale_log2 = np.float32(np.log2(np.e) / np.sqrt(D))
     out = np.empty_like(q)
-    for q0 in range(0, S, 64):
-        qs = q[:, q0:q0 + 64]
-        rows = np.arange(q0, q0 + qs.shape[1])[:, None]
+    for r0 in range(0, S_q, 64):
+        r1 = min(r0 + 63, S_q - 1)
+        rows = np.arange(r0, r1 + 1)[:, None]
+        qs = q[:, r0:r1 + 1]
         m = np.full(qs.shape[:2], -1e30, np.float32)
         l = np.zeros(qs.shape[:2], np.float32)
         acc = np.zeros(qs.shape, np.float32)
-        for kt in range(0, min(S, q0 + 64), BK):
-            s = np.einsum("bqd,bkd->bqk", qs, k[:, kt:kt + BK]) * scale_log2
-            keys = np.arange(kt, min(kt + BK, S))[None, :]
-            s = np.where(keys <= rows, s, np.float32(-1e30))
-            m_new = np.maximum(m, s.max(-1))
+        kb, ke = _key_range(r0, r1, S_k, causal, window)
+        for kt in range(kb // BK * BK, ke, BK):
+            kend = min(kt + BK, S_k)
+            s = np.einsum("bqd,bkd->bqk", qs, k[:, kt:kend])
+            edge = (causal and kt + BK - 1 > r0) or \
+                (window > 0 and kt <= r1 - window) or kt + BK > S_k
+            if edge:
+                keys = np.arange(kt, kend)[None, :]
+                ok = np.ones_like(s[0], dtype=bool)
+                if causal:
+                    ok &= keys <= rows
+                if window:
+                    ok &= keys > rows - window
+                x = np.where(ok, s * scale_log2, np.float32(-1e30))
+                m_new = np.maximum(m, x.max(-1))
+                x = x - m_new[..., None]
+            else:
+                m_new = np.maximum(m, s.max(-1) * scale_log2)
+                x = (s.astype(np.float64) * scale_log2
+                     - m_new[..., None]).astype(np.float32)
             alpha = np.exp2(m - m_new)
-            p = np.exp2(s - m_new[..., None])
-            l = alpha * l + p.sum(-1)
+            p = np.exp2(x)
+            l = l * alpha + p.sum(-1)
             acc = alpha[..., None] * acc + np.einsum(
-                "bqk,bkd->bqd", _bf16(p), v[:, kt:kt + BK])
+                "bqk,bkd->bqd", _bf16(p), v[:, kt:kend])
             m = m_new
-        out[:, q0:q0 + 64] = _bf16(acc / np.maximum(l, 1e-30)[..., None])
+        inv = np.float32(1) / np.maximum(l, np.float32(1e-30))
+        out[:, r0:r1 + 1] = _bf16(acc * inv[..., None])
     return out
 
 
-@pytest.mark.parametrize("H,D,BK", [(2, 256, 32), (4, 128, 64)])
-def test_tensor_core_rounding_matches_pallas(H, D, BK):
+@pytest.mark.parametrize("H,D,S_q,S_k,causal,window,block", [
+    (2, 256, 288, 288, True, 0, 32),     # 64-key tiles, a ragged last one
+    (2, 128, 320, 320, True, 0, 64),     # a ragged 128-key tile
+    (2, 64, 320, 320, True, 96, 64),     # a window edge inside a tile
+    (2, 256, 256, 256, True, 48, 64),
+    (2, 128, 192, 320, False, 0, 64),    # S_q != S_k, not causal
+    (1, 64, 256, 256, False, 0, 128),
+])
+def test_tensor_core_rounding_matches_pallas(H, D, S_q, S_k, causal, window,
+                                             block):
     """The bf16 route rounds p to bf16 before p.v, as the MXU's one bf16
-    pass does; that arithmetic stays within the bf16 tolerance of the
-    Pallas kernel on the same inputs."""
-    q, k, v = _qkv(17 + D, 1, 512, 512, H, H, D, "bfloat16")
+    pass does; that arithmetic, in the kernel's tiles (64 query rows a
+    consumer, the bucket's key tiles, each consumer's own key range),
+    stays within the bf16 tolerance of the Pallas kernel on the same
+    inputs."""
+    rng = np.random.default_rng(17 + D + S_q + window)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               .astype(ml_dtypes.bfloat16)
+               for shape in ((1, S_q, H, D), (1, S_k, H, D), (1, S_k, H, D)))
     want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
-                                jnp.asarray(v), causal=True, interpret=True)
+                                jnp.asarray(v), causal=causal, window=window,
+                                block_q=block, block_k=block, interpret=True)
     got = _tc_arithmetic(*(_bh(np.asarray(a, np.float32)) for a in (q, k, v)),
-                         BK)
-    got = got.reshape(1, H, 512, D).transpose(0, 2, 1, 3)
+                         causal, window)
+    got = got.reshape(1, H, S_q, D).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                **_tol("bfloat16"))
+
+
+#: the H100's register file, and the shared memory a block may use
+REGISTER_FILE = 65536
+SMEM_PER_BLOCK = 232448
+
+
+def test_tc_tiles_fit_the_card():
+    """Every instance of the bf16 kernel fits the shared memory a block
+    may use, and its register split the 65,536-register file: with two
+    consumers, setmaxnreg moves registers within the block's launch
+    share (65,536 / 384 threads, to a multiple of 8: 168 a thread)."""
+    assert set(fa.TC_TILES) == {(w, r) for w in fa.HEAD_DIM_BUCKETS
+                                for r in (64, 128)}
+    for (width, rows), t in fa.TC_TILES.items():
+        assert (t.width, t.q_rows) == (width, rows)
+        consumers = rows // 64
+        assert t.threads == 128 * (consumers + 1)
+        assert t.smem_bytes <= SMEM_PER_BLOCK, t
+        assert t.k_rows % 16 == 0 and width % 64 == 0
+        share = REGISTER_FILE // t.threads // 8 * 8
+        producer, consumer = t.regs
+        assert max(t.regs) <= 255
+        assert 128 * producer + 128 * consumers * consumer             <= t.threads * min(share, 255), t
+        if consumers == 2:   # setmaxnreg's counts: multiples of 8, >= 24
+            assert t.regs == (24, 240) and share == 168
+    # the issue's table: 192, 160 and 112 KB of tiles at 128 query rows
+    for width, kb in ((256, 192), (128, 160), (64, 112)):
+        t = fa.TC_TILES[(width, 128)]
+        tiles = 2 * width * (t.q_rows + 2 * t.stages * t.k_rows)
+        assert tiles == kb * 1024, (width, tiles)
+
+
+def test_tc_tiles_pick_by_shape_alone():
+    """128 query rows a block unless that leaves one of the card's 132
+    SMs without a block; then 64. The pick reads the shape and nothing
+    else: the width bucket follows D, the rows follow B, S_q and H."""
+    assert fa.SM_COUNT == 132
+    assert fa.tc_tiles(4, 1024, 64, 128).q_rows == 128     # Qwen3-32B
+    assert fa.tc_tiles(4, 3008, 32, 128).q_rows == 128     # LLaVA-NeXT
+    assert fa.tc_tiles(4, 2048, 25, 64).q_rows == 128      # Hymba
+    assert fa.tc_tiles(4, 128, 16, 64).q_rows == 64        # SeamlessM4T
+    assert fa.tc_tiles(1, 128, 131, 64).q_rows == 64       # 131 blocks
+    assert fa.tc_tiles(1, 128, 132, 64).q_rows == 128      # 132 blocks
+    assert fa.tc_tiles(1, 129, 66, 64).q_rows == 128       # 2 x 66
+    for D in (1, 8, 64, 72, 128, 200, 256):
+        t = fa.tc_tiles(2, 1000, 32, D)
+        assert t == fa.TC_TILES[(fa.padded_head_dim(D), 128)]
+
+
+def test_tc_staging_pads_into_fresh_aligned_buffers():
+    """Inputs the TMA maps cannot address (D % 8 != 0, or a base off 16
+    bytes) are copied into new zero-padded buffers of the bucket's
+    width."""
+    buf = torch.arange(1, 1 + 2 * 3 * 20 + 1, dtype=torch.float32) \
+        .to(torch.bfloat16)
+    off = buf[1:].view(2, 3, 20)
+    assert not vector_loads(20, off)
+    out = fa._staged(off, 64)
+    assert out.shape == (2, 3, 64) and out.data_ptr() % 16 == 0
+    assert out.data_ptr() != off.data_ptr()
+    assert torch.equal(out[..., :20], off)
+    assert not out[..., 20:].any()
+    assert vector_loads(64, out)
 
 
 def test_padded_head_dim_buckets():
