@@ -428,11 +428,20 @@ def start_session():
 
 
 def stop_session(prof):
-    """Sync, pad (``PAD_TAIL`` launches) and stop ``prof``."""
+    """Sync, pad (``PAD_TAIL`` launches) and stop ``prof``, dropping the
+    port's spans recorded under it."""
     torch.cuda.synchronize()
     _pad(PAD_TAIL)
     prof.stop()
+    _drop_session_spans()
     return prof
+
+
+def _drop_session_spans() -> None:
+    """Read the port's spans of the profiler session just stopped, which
+    closes them: the next session's spans start afresh."""
+    from repro_torch.obs import trace
+    trace.session_spans()
 
 
 def _device_events(prof) -> list:
@@ -1860,6 +1869,7 @@ def _sdpa_op(fn) -> str:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
+    _drop_session_spans()
     ops = sorted({ev.key for ev in prof.key_averages()
                   if ev.key.startswith("aten::_scaled_dot_product_")})
     return ", ".join(ops) or "no aten::_scaled_dot_product_* op"

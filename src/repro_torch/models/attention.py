@@ -38,6 +38,11 @@ kv_lora + rope (288 for MiniCPM3, 576 for DeepSeek-V2) against a v width
 of kv_lora, and the kernel takes only equal k and v widths of at most
 256. The reference computes MLA in jnp outside any Pallas kernel too.
 
+The attention product alone, projections and cache writes outside it,
+records the span ``model.attention.core`` (``obs.trace``) with its
+``route``: ``flash``, ``cache`` (over the cache: GQA's decode, MLA's
+absorbed branch) or ``fresh`` (over the fresh k, v: no cache).
+
 A cache is a dict of tensors updated IN PLACE (GQA: k, v; MLA: c_kv,
 k_rope; both: positions) plus a host integer ``pos``; the reference
 returns a new cache instead. Keeping ``pos`` on the host leaves the
@@ -55,6 +60,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..obs import trace as _trace
 from ..parallel.context import heads_parallel, split_evenly, unsplit, \
     write_slice_
 from .layers import RMSNorm, _param, apply_rope
@@ -180,14 +186,17 @@ class GQA(nn.Module):
         elif cache is not None:
             _write(cache, positions, k=k, v=v)
             # the query's heads whole against the length-split cache
-            out = grouped_attention(unsplit(q, 2), cache["k"], cache["v"],
-                                    positions, cache["positions"],
-                                    causal=causal, window=window,
-                                    softcap=cfg.attn_logit_softcap)
+            with _trace.span("model.attention.core", route="cache"):
+                out = grouped_attention(unsplit(q, 2), cache["k"],
+                                        cache["v"], positions,
+                                        cache["positions"], causal=causal,
+                                        window=window,
+                                        softcap=cfg.attn_logit_softcap)
         else:
-            out = heads_parallel(functools.partial(
-                grouped_attention, causal=causal, window=window,
-                softcap=cfg.attn_logit_softcap), q, k, v, positions, kp)
+            with _trace.span("model.attention.core", route="fresh"):
+                out = heads_parallel(functools.partial(
+                    grouped_attention, causal=causal, window=window,
+                    softcap=cfg.attn_logit_softcap), q, k, v, positions, kp)
         H, hd, d = self.wo.shape
         y = out.reshape(B, S, H * hd) @ self.wo.reshape(H * hd, d).to(x.dtype)
         return y, cache
@@ -206,8 +215,10 @@ class GQA(nn.Module):
             raise ValueError(f"window must be >= 1, got {window}")
         if cache is not None:
             _write(cache, positions, k=k, v=v)
-        return heads_parallel(functools.partial(
-            ops.flash_attention, causal=causal, window=window or 0), q, k, v)
+        with _trace.span("model.attention.core", route="flash"):
+            return heads_parallel(functools.partial(
+                ops.flash_attention, causal=causal, window=window or 0),
+                q, k, v)
 
 
 def init_gqa_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
@@ -297,8 +308,9 @@ class MLA(nn.Module):
         q_nope, q_rope, c_kv, k_rope = self._qkv(x, positions)
         if cache is not None:
             _write(cache, positions, c_kv=c_kv, k_rope=k_rope)
-            out = self._absorbed(q_nope, q_rope, cache, positions, window,
-                                 causal)
+            with _trace.span("model.attention.core", route="cache"):
+                out = self._absorbed(q_nope, q_rope, cache, positions,
+                                     window, causal)
         else:
             k_nope = torch.einsum("btl,lhn->bthn", c_kv,
                                   self.w_uk.to(x.dtype))
@@ -306,10 +318,11 @@ class MLA(nn.Module):
             k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
                 B, S, H, m.qk_rope_head_dim)], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)
-            out = heads_parallel(functools.partial(
-                grouped_attention, causal=causal, window=window,
-                scale=1.0 / math.sqrt(q.shape[-1])), q, k, v, positions,
-                positions)
+            with _trace.span("model.attention.core", route="fresh"):
+                out = heads_parallel(functools.partial(
+                    grouped_attention, causal=causal, window=window,
+                    scale=1.0 / math.sqrt(q.shape[-1])), q, k, v, positions,
+                    positions)
         Hv = H * m.v_head_dim
         out = split_evenly(split_evenly(out, 2, H).reshape(B, S, Hv), 2, H)
         y = out @ self.wo.reshape(Hv, -1).to(x.dtype)

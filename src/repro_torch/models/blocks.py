@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ArchConfig
+from ..obs import trace as _trace
 from ..parallel.context import constrain_batch
 from .attention import GQA, init_attention_cache, make_attention
 from .layers import MLP, RMSNorm
@@ -114,16 +115,19 @@ class Block(nn.Module):
         s_cache = None if cache is None else cache.get("ssm")
         if self.hybrid:
             h = self.attn_norm(x)
-            a_out, _ = self.attn(h, positions, window=window, cache=a_cache,
-                                 prefill=prefill, causal=causal)
+            with _trace.span("model.attention"):
+                a_out, _ = self.attn(h, positions, window=window,
+                                     cache=a_cache, prefill=prefill,
+                                     causal=causal)
             s_out, _ = self.ssm(h, cache=s_cache)
             x = x + 0.5 * (self.attn_out_norm(constrain_batch(a_out))
                            + self.ssm_out_norm(constrain_batch(s_out)))
         else:
             if hasattr(self, "attn"):
-                a_out, _ = self.attn(self.attn_norm(x), positions,
-                                     window=window, cache=a_cache,
-                                     prefill=prefill, causal=causal)
+                with _trace.span("model.attention"):
+                    a_out, _ = self.attn(self.attn_norm(x), positions,
+                                         window=window, cache=a_cache,
+                                         prefill=prefill, causal=causal)
                 x = x + constrain_batch(a_out)
             if hasattr(self, "ssm"):
                 s_out, _ = self.ssm(self.ssm_norm(x), cache=s_cache)
@@ -138,10 +142,13 @@ class Block(nn.Module):
 
         aux: Aux = 0.0
         if hasattr(self, "moe"):
-            m_out, aux = self.moe(self.ffn_norm(x))
+            with _trace.span("model.ffn"):
+                m_out, aux = self.moe(self.ffn_norm(x))
             x = x + constrain_batch(m_out)
         elif hasattr(self, "mlp"):
-            x = x + constrain_batch(self.mlp(self.ffn_norm(x)))
+            with _trace.span("model.ffn"):
+                m_out = self.mlp(self.ffn_norm(x))
+            x = x + constrain_batch(m_out)
         return x, aux, cache
 
 
@@ -231,11 +238,13 @@ def apply_stack(
     aux: Aux = 0.0
     for i, block in enumerate(layers):
         run = _remat(block, remat if cache is None else "none")
-        x, a, _ = run(x, positions, None if windows is None else windows[i],
-                      cache=None if cache is None else cache[i],
-                      prefill=prefill, causal=causal,
-                      encoder_out=encoder_out,
-                      encoder_positions=encoder_positions)
+        with _trace.span("model.block", layer=i):
+            x, a, _ = run(x, positions,
+                          None if windows is None else windows[i],
+                          cache=None if cache is None else cache[i],
+                          prefill=prefill, causal=causal,
+                          encoder_out=encoder_out,
+                          encoder_positions=encoder_positions)
         x = constrain_batch(x)  # keep the residual stream batch-sharded
         aux = aux + a
     return x, aux, cache

@@ -19,7 +19,8 @@ adds {"labels": (B, S)}, with ``IGNORE`` (-100) as the ignore index.
 
 ``init`` allocates every parameter on the requested device and fills it
 there with an explicit generator: a full-width model never passes
-through host memory.
+through host memory. The final norm and the logits record the span
+``model.head`` (``obs.trace``).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..backend.torch_backend import resolve_device
 from ..configs.base import ArchConfig
+from ..obs import trace as _trace
 from ..parallel.context import constrain_batch, gather_last
 from .blocks import Block, LayerCache, apply_stack, init_stack_cache, \
     layer_windows
@@ -171,7 +173,8 @@ def forward(cfg: ArchConfig, params: LM,
     windows = layer_windows(cfg, cfg.num_layers)
     x, aux, _ = apply_stack(params.layers, x, positions, windows,
                             remat=cfg.remat)
-    logits = constrain_batch(params.logits(params.final_norm(x)))
+    with _trace.span("model.head"):
+        logits = constrain_batch(params.logits(params.final_norm(x)))
 
     labels = batch["labels"]
     if cfg.frontend == "vision" and "image_embeds" in batch:
@@ -210,8 +213,8 @@ def prefill(
     windows = layer_windows(cfg, cfg.num_layers, window_override)
     x, _, cache = apply_stack(params.layers, x, positions, windows,
                               cache=cache, prefill=True)
-    x = params.final_norm(x[:, -1:])
-    return params.logits(x), cache
+    with _trace.span("model.head"):
+        return params.logits(params.final_norm(x[:, -1:])), cache
 
 
 def decode_step(
@@ -229,5 +232,5 @@ def decode_step(
     windows = layer_windows(cfg, cfg.num_layers, window_override)
     x, _, cache = apply_stack(params.layers, x, positions, windows,
                               cache=cache)
-    x = params.final_norm(x)
-    return params.logits(x), cache
+    with _trace.span("model.head"):
+        return params.logits(params.final_norm(x)), cache

@@ -2,10 +2,11 @@
 
 Three pieces (docs/OBSERVABILITY.md):
 
-* ``obs.trace``   — span/tracer over the offer phases, Chrome-trace
-  JSON + per-phase aggregate table (``REPRO_TRACE=1`` or
-  ``SimEngine(trace=...)`` to enable; no-op singleton otherwise).
-* ``obs.metrics`` — process-wide counter/gauge/histogram registry with
+* ``obs.trace``   — span/tracer over the offer phases and the serve,
+  model and train paths, Chrome-trace JSON + per-phase aggregate table
+  (``REPRO_TRACE=1``, ``SimEngine(trace=...)`` or a recording torch
+  profiler session to enable; no-op singleton otherwise).
+* ``obs.metrics`` — process-wide counter/gauge registry with
   Prometheus-style ``render()``; replaces scattered warn-once paths.
 * ``obs.pd_gap``  — realized primal utility vs dual objective from the
   ``PriceTable`` tensors (duality gap / empirical competitive ratio).
@@ -17,7 +18,6 @@ from . import trace
 from .metrics import (
     Counter,
     Gauge,
-    Histogram,
     MetricsRegistry,
     get_registry,
     warn_once_event,
@@ -29,7 +29,6 @@ __all__ = [
     "trace",
     "Counter",
     "Gauge",
-    "Histogram",
     "MetricsRegistry",
     "get_registry",
     "warn_once_event",

@@ -1,4 +1,4 @@
-"""Process-wide counter/gauge/histogram registry with Prometheus-style
+"""Process-wide counter/gauge registry with Prometheus-style
 text exposition.
 
 One named surface replaces the scattered warn-once ``warnings.warn``
@@ -14,14 +14,14 @@ engine checkpoints, which is what makes the registry deterministic under
 values as an uninterrupted one.
 
 Instruments are cheap (a float add behind one dict hit) and always on;
-``render()`` produces the Prometheus text format, ``snapshot()`` a flat
-dict for JSON rows and tests. Instrument catalog: docs/OBSERVABILITY.md.
+``render()`` produces the Prometheus text format. Instrument catalog:
+docs/OBSERVABILITY.md.
 """
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List
 
 _log = logging.getLogger("repro_torch.obs")
 
@@ -46,7 +46,7 @@ class Counter:
 
 
 class Gauge:
-    """Point-in-time value (set/inc/dec)."""
+    """Point-in-time value."""
 
     __slots__ = ("name", "help", "value")
 
@@ -58,40 +58,6 @@ class Gauge:
     def set(self, v: float) -> None:
         self.value = float(v)
 
-    def inc(self, n: float = 1.0) -> None:
-        self.value += n
-
-    def dec(self, n: float = 1.0) -> None:
-        self.value -= n
-
-
-_DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
-
-
-class Histogram:
-    """Fixed-bucket histogram (cumulative counts, Prometheus semantics)."""
-
-    __slots__ = ("name", "help", "buckets", "counts", "sum", "count")
-
-    def __init__(self, name: str, help: str = "",
-                 buckets: Sequence[float] = _DEFAULT_BUCKETS):
-        self.name = name
-        self.help = help
-        self.buckets = tuple(sorted(float(b) for b in buckets))
-        self.counts = [0] * (len(self.buckets) + 1)  # +Inf tail
-        self.sum = 0.0
-        self.count = 0
-
-    def observe(self, v: float) -> None:
-        v = float(v)
-        self.sum += v
-        self.count += 1
-        for i, b in enumerate(self.buckets):
-            if v <= b:
-                self.counts[i] += 1
-                return
-        self.counts[-1] += 1
-
 
 class MetricsRegistry:
     """Named-instrument registry: get-or-create by name, render as
@@ -102,13 +68,13 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._instruments: Dict[str, object] = {}
 
-    def _get(self, name: str, cls, help: str, **kw):
+    def _get(self, name: str, cls, help: str):
         inst = self._instruments.get(name)
         if inst is None:
             with self._lock:
                 inst = self._instruments.get(name)
                 if inst is None:
-                    inst = cls(name, help, **kw)
+                    inst = cls(name, help)
                     self._instruments[name] = inst
         if not isinstance(inst, cls):
             raise TypeError(
@@ -122,60 +88,19 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "") -> Gauge:
         return self._get(name, Gauge, help)
 
-    def histogram(self, name: str, help: str = "",
-                  buckets: Sequence[float] = _DEFAULT_BUCKETS) -> Histogram:
-        return self._get(name, Histogram, help, buckets=buckets)
-
     # ----------------------------------------------------------- export
-    def snapshot(self) -> Dict[str, float]:
-        """Flat name -> value dict (histograms expose _sum/_count)."""
-        out: Dict[str, float] = {}
-        for name in sorted(self._instruments):
-            inst = self._instruments[name]
-            if isinstance(inst, Histogram):
-                out[f"{name}_sum"] = inst.sum
-                out[f"{name}_count"] = float(inst.count)
-            else:
-                out[name] = inst.value  # type: ignore[attr-defined]
-        return out
-
     def render(self) -> str:
         """Prometheus text exposition format."""
         lines: List[str] = []
         for name in sorted(self._instruments):
             inst = self._instruments[name]
-            kind = {"Counter": "counter", "Gauge": "gauge",
-                    "Histogram": "histogram"}[type(inst).__name__]
+            kind = {"Counter": "counter",
+                    "Gauge": "gauge"}[type(inst).__name__]
             if inst.help:  # type: ignore[attr-defined]
                 lines.append(f"# HELP {name} {inst.help}")  # type: ignore
             lines.append(f"# TYPE {name} {kind}")
-            if isinstance(inst, Histogram):
-                cum = 0
-                for b, c in zip(inst.buckets, inst.counts):
-                    cum += c
-                    lines.append(f'{name}_bucket{{le="{_fmt(b)}"}} {cum}')
-                cum += inst.counts[-1]
-                lines.append(f'{name}_bucket{{le="+Inf"}} {cum}')
-                lines.append(f"{name}_sum {_fmt(inst.sum)}")
-                lines.append(f"{name}_count {inst.count}")
-            else:
-                lines.append(f"{name} {_fmt(inst.value)}")  # type: ignore
+            lines.append(f"{name} {_fmt(inst.value)}")  # type: ignore
         return "\n".join(lines) + ("\n" if lines else "")
-
-    def reset(self) -> None:
-        with self._lock:
-            self._instruments.clear()
-
-    def get(self, name: str) -> Optional[object]:
-        return self._instruments.get(name)
-
-    def value(self, name: str, default: float = 0.0) -> float:
-        inst = self._instruments.get(name)
-        if inst is None:
-            return default
-        if isinstance(inst, Histogram):
-            return inst.sum
-        return inst.value  # type: ignore[attr-defined]
 
 
 _registry = MetricsRegistry()

@@ -1,16 +1,33 @@
-"""Span/tracer layer over the offer pipeline — zero-overhead when off.
+"""Span/tracer layer over the offer pipeline and the serve, model and train
+paths — zero-overhead when off.
 
-Design contract (see docs/OBSERVABILITY.md):
+Design contract (docs/OBSERVABILITY.md; the serve, model and train
+spans in README.md's port section):
 
 * **Disabled is the default.** ``span(name)`` returns a shared no-op
-  context manager when no tracer is installed — one global read, no
-  allocation — so instrumented call sites cost nanoseconds in production
-  paths. Enable with ``REPRO_TRACE=1`` (process-wide, read at import) or
-  programmatically (``install(Tracer())`` / ``SimEngine(trace=...)``).
-* **Decisions never depend on tracing.** Spans record wall time and
-  attributes only; they consume no rng, reorder no computation, and the
-  bit-parity suite (tests/test_obs.py) asserts admission decisions are
-  identical with tracing on vs off in both rng modes.
+  context manager when no tracer is installed and no torch profiler
+  session records — two global reads, no allocation — so instrumented
+  call sites cost nanoseconds in production paths. Enable with
+  ``REPRO_TRACE=1`` (process-wide, read at import) or programmatically
+  (``install(Tracer())`` / ``activate`` / ``SimEngine(trace=...)``).
+* **A profiler session records spans too.** With no tracer installed,
+  spans opened while a ``torch.profiler`` session records (the
+  profiler's own module flag, ``_is_profiler_enabled``) go to a session
+  tracer, which the first such span opens. ``session_spans()``, read
+  once no session records, returns its spans (those of every session
+  since the last such read) and closes it, so the next session's first
+  span opens a new one: a process that runs several sessions reads after
+  each to keep them apart.
+* **One clock with the profiler.** Spans stamp their start and end in
+  nanoseconds of ``time.time_ns()``: the clock (CLOCK_REALTIME) to which
+  torch's profiler converts its CPU and device events, so a span and the
+  kernel launches it encloses lie on one time line.
+* **Nothing depends on tracing.** Spans record time and attributes
+  only; they consume no rng, add no sync, record no CUDA event and
+  reorder no computation. The bit-parity suite (tests/test_obs.py)
+  asserts admission decisions are identical with tracing on vs off in
+  both rng modes; tests/test_torch_spans.py asserts the same of served
+  tokens and training losses.
 * **Exception-safe span trees.** ``Span.__exit__`` always closes the
   span (recording the exception type in ``attrs["error"]``) and repairs
   the open-span stack even if an inner span leaked, so a ``SolverFault``
@@ -23,7 +40,11 @@ Span taxonomy (names are dotted phases; nesting gives the tree):
 ``plan.resolve`` > ``plan.finish``, ``dp.sweep``} and ``offer.commit``;
 the simulator adds ``sim.advance``/``sim.arrivals``/``sim.checkpoint``/
 ``sim.recover`` around the engine loop and ``offer.batch`` per arrival
-batch.
+batch. Serving: ``serve.batch`` > {``serve.prefill``,
+``serve.decode_step``}; training: ``train.step`` > {``train.forward``,
+``train.backward``, ``train.adamw`` > ``train.adamw.slab``}; the model,
+under either: ``model.block`` > {``model.attention`` >
+``model.attention.core``, ``model.ffn``} and ``model.head``.
 
 Exports: ``Tracer.chrome_trace()`` (Chrome ``chrome://tracing`` /
 Perfetto JSON, "X" complete events in microseconds) and
@@ -33,30 +54,32 @@ the traced coverage of a run).
 """
 from __future__ import annotations
 
-import json
 import os
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
+import torch.autograd.profiler as _profiler
+
 
 class Span:
     """One timed phase. Context manager; returned by ``Tracer.span`` and
-    the module-level ``span()`` when tracing is enabled."""
+    the module-level ``span()`` when tracing is enabled. ``t0`` and ``t1``
+    are ``time.time_ns()`` stamps (``t1`` None while open)."""
 
-    __slots__ = ("name", "attrs", "t0", "dur", "depth", "parent", "index",
+    __slots__ = ("name", "attrs", "t0", "t1", "depth", "parent", "index",
                  "child_dur", "_tracer")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
-        self.t0 = 0.0
-        self.dur: Optional[float] = None
+        self.t0 = 0
+        self.t1: Optional[int] = None
         self.depth = 0
         self.parent = -1          # index into tracer.spans, -1 = root
         self.index = -1
-        self.child_dur = 0.0      # closed children's wall, for self-time
+        self.child_dur = 0.0      # closed children's seconds, for self-time
 
     def set(self, **kv: Any) -> "Span":
         self.attrs.update(kv)
@@ -66,6 +89,11 @@ class Span:
         self.attrs[key] = self.attrs.get(key, 0) + value
         return self
 
+    @property
+    def dur(self) -> Optional[float]:
+        """The span's seconds; None while open."""
+        return None if self.t1 is None else (self.t1 - self.t0) * 1e-9
+
     def __enter__(self) -> "Span":
         tr = self._tracer
         stack = tr._stack
@@ -74,23 +102,23 @@ class Span:
         self.index = len(tr.spans)
         tr.spans.append(self)
         stack.append(self)
-        self.t0 = time.perf_counter()
+        self.t0 = time.time_ns()
         return self
 
     def __exit__(self, et, ev, tb) -> bool:
-        end = time.perf_counter()
+        end = time.time_ns()
         tr = self._tracer
         stack = tr._stack
         # close any children leaked by a non-context-managed path so the
         # tree stays well-formed even under surprise unwinds
         while stack and stack[-1] is not self:
             leaked = stack.pop()
-            if leaked.dur is None:
-                leaked.dur = end - leaked.t0
+            if leaked.t1 is None:
+                leaked.t1 = end
                 leaked.attrs["leaked"] = True
         if stack:
             stack.pop()
-        self.dur = end - self.t0
+        self.t1 = end
         if et is not None:
             self.attrs["error"] = et.__name__
         if self.parent >= 0:
@@ -130,16 +158,11 @@ class Tracer:
     def __init__(self) -> None:
         self.spans: List[Span] = []
         self._stack: List[Span] = []
-        self.origin = time.perf_counter()
+        self.origin = time.time_ns()
 
     # -------------------------------------------------------------- API
     def span(self, name: str, **attrs: Any) -> Span:
         return Span(self, name, attrs)
-
-    def reset(self) -> None:
-        self.spans = []
-        self._stack = []
-        self.origin = time.perf_counter()
 
     def well_formed(self) -> bool:
         """No open spans, every span closed, parents precede children."""
@@ -162,17 +185,13 @@ class Tracer:
             events.append({
                 "name": sp.name,
                 "ph": "X",
-                "ts": (sp.t0 - self.origin) * 1e6,
+                "ts": (sp.t0 - self.origin) * 1e-3,
                 "dur": (sp.dur or 0.0) * 1e6,
                 "pid": 0,
                 "tid": 0,
                 "args": {k: v for k, v in sp.attrs.items()},
             })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
-
-    def dump_chrome_trace(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.chrome_trace(), f)
 
     def phase_table(self) -> Dict[str, Dict[str, float]]:
         """Per-phase aggregate keyed by span name.
@@ -197,13 +216,13 @@ class Tracer:
             row["mean_ms"] = row["total_s"] * 1e3 / row["count"]
         return table
 
-    def total_self_s(self) -> float:
-        """Wall time accounted by the tree = summed root-span durations."""
-        return sum(sp.dur or 0.0 for sp in self.spans if sp.parent < 0)
-
 
 # ---------------------------------------------------------------- global
 _tracer: Optional[Tracer] = None
+#: the spans recorded under profiler sessions with no tracer installed
+#: since ``session_spans`` last closed it; None before the first such span
+_session: Optional[Tracer] = None
+_session_closed = False
 
 
 def get_tracer() -> Optional[Tracer]:
@@ -230,31 +249,47 @@ def activate(tracer: Optional[Tracer]):
         _tracer = prev
 
 
+def _session_tracer() -> Tracer:
+    """The session tracer, a new one if the last was closed."""
+    global _session, _session_closed
+    if _session is None or _session_closed:
+        _session, _session_closed = Tracer(), False
+    return _session
+
+
+def session_spans() -> List[Span]:
+    """The spans recorded with no tracer installed under every profiler
+    session since the last read made while none recorded, in start order
+    (empty if none). Such a read also closes their tracer: the next
+    session's first span opens a new one, and until then each read
+    returns the same spans."""
+    global _session_closed
+    if _session is None:
+        return []
+    if not _profiler._is_profiler_enabled:
+        _session_closed = True
+    return _session.spans
+
+
 def span(name: str, **attrs: Any):
-    """Open a span on the installed tracer; no-op singleton when off."""
+    """Open a span on the installed tracer, else on the session tracer
+    while a profiler session records; no-op singleton when off."""
     tr = _tracer
     if tr is None:
-        return _NULL_SPAN
+        if not _profiler._is_profiler_enabled:
+            return _NULL_SPAN
+        tr = _session_tracer()
     return Span(tr, name, attrs)
-
-
-def annotate(**kv: Any) -> None:
-    """Attach attributes to the innermost open span (no-op when off)."""
-    tr = _tracer
-    if tr is not None and tr._stack:
-        tr._stack[-1].attrs.update(kv)
 
 
 def add(key: str, value: float) -> None:
     """Accumulate a numeric attribute on the innermost open span."""
     tr = _tracer
+    if tr is None and _profiler._is_profiler_enabled:
+        tr = _session
     if tr is not None and tr._stack:
         sp = tr._stack[-1]
         sp.attrs[key] = sp.attrs.get(key, 0) + value
-
-
-def enabled() -> bool:
-    return _tracer is not None
 
 
 # REPRO_TRACE=1 turns tracing on for the whole process at import time

@@ -23,7 +23,9 @@ norm sums each tensor's squares in the same slabs, so no float32 copy
 of a whole tensor is made (a 256,000 x 12,288 table would need 12.6 GB
 for each). The update is elementwise, so its params and moments are
 bit for bit those of one piece; a tensor of at most one slab sums its
-squares as one piece, a larger one in slab order.
+squares as one piece, a larger one in slab order. The update records the
+span ``train.adamw`` (the global norm included), and each slab
+``train.adamw.slab`` (``obs.trace``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
+
+from ..obs import trace as _trace
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -99,34 +103,41 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict,
     """One AdamW step over every param of ``params`` (``grads`` has the
     same names). Updates ``params`` and the state's moments in place and
     returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
-    step = state["step"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    with _trace.span("train.adamw") as sp:
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
-    b1, b2 = cfg.b1, cfg.b2
-    t = step.to(torch.float32)
-    bc1 = 1.0 - torch.full((), b1, dtype=torch.float32, device=t.device) ** t
-    bc2 = 1.0 - torch.full((), b2, dtype=torch.float32, device=t.device) ** t
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
-                                  device=t.device)
+        b1, b2 = cfg.b1, cfg.b2
+        t = step.to(torch.float32)
+        bc1 = 1.0 - torch.full((), b1, dtype=torch.float32,
+                               device=t.device) ** t
+        bc2 = 1.0 - torch.full((), b2, dtype=torch.float32,
+                               device=t.device) ** t
+        lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
+                                      device=t.device)
 
-    for name, p in params.items():
-        slabs = zip(*(_slabs(x, f"{what} {name!r}")
-                      for what, x in (("param", p), ("gradient", grads[name]),
-                                      ("m", state["m"][name]),
-                                      ("v", state["v"][name]))))
-        for p_, g, m, v in slabs:
-            g32 = g.to(torch.float32) * clip
-            m32 = m.to(torch.float32) * b1
-            m32.add_((1 - b1) * g32)
-            v32 = v.to(torch.float32) * b2
-            v32.add_((1 - b2) * torch.square(g32))
-            del g32
-            delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
-            m.copy_(m32)
-            v.copy_(v32)
-            del m32, v32
-            delta.add_(cfg.weight_decay * p_.to(torch.float32))
-            p_.copy_(p_.to(torch.float32) - lr * delta)
+        for name, p in params.items():
+            slabs = zip(*(_slabs(x, f"{what} {name!r}")
+                          for what, x in (("param", p),
+                                          ("gradient", grads[name]),
+                                          ("m", state["m"][name]),
+                                          ("v", state["v"][name]))))
+            for p_, g, m, v in slabs:
+                sp.add("elements", p_.numel()).add("slabs", 1)
+                with _trace.span("train.adamw.slab", elements=p_.numel()):
+                    g32 = g.to(torch.float32) * clip
+                    m32 = m.to(torch.float32) * b1
+                    m32.add_((1 - b1) * g32)
+                    v32 = v.to(torch.float32) * b2
+                    v32.add_((1 - b2) * torch.square(g32))
+                    del g32
+                    delta = (m32 / bc1).div_((v32 / bc2).sqrt_()
+                                             .add_(cfg.eps))
+                    m.copy_(m32)
+                    v.copy_(v32)
+                    del m32, v32
+                    delta.add_(cfg.weight_decay * p_.to(torch.float32))
+                    p_.copy_(p_.to(torch.float32) - lr * delta)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

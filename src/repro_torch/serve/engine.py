@@ -11,6 +11,8 @@ the forward reads (``lm.compute_params``: weights cast once to the
 compute dtype), samples with its own generator on that device, and
 synchronizes the device before each reading of the clock, so
 ``prefill_ms`` and ``decode_ms`` are the device's time, not the enqueue.
+A batch records the spans ``serve.batch`` > {``serve.prefill``,
+``serve.decode_step``} (``obs.trace``) when tracing is on.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import build_model, lm
+from ..obs import trace as _trace
 
 
 @dataclasses.dataclass
@@ -72,24 +75,29 @@ class ServeEngine:
         if len({len(r.prompt) for r in requests}) != 1:
             raise ValueError("batch must have equal prompt lengths")
         prompts = np.stack([r.prompt for r in requests]).astype(np.int64)
-        self._sync()
-        t0 = time.perf_counter()
-        batch = {"tokens": torch.from_numpy(prompts).to(self.device)}
-        logits, state = self.model.prefill(self.params, batch, self.cache_len)
-        self._sync()
-        t1 = time.perf_counter()
         max_new = max(r.max_new_tokens for r in requests)
         temperature = requests[0].temperature
-        tok = self._sample(logits[:, -1], temperature)[:, None]
-        out = [tok]
-        for _ in range(max_new - 1):
-            logits, state = self.model.decode(self.params, tok, state)
-            tok = self._sample(logits[:, 0], temperature)[:, None]
-            out.append(tok)
-        tokens = torch.cat(out, dim=1)
-        self._sync()
-        t2 = time.perf_counter()
-        toks = tokens.cpu().numpy().astype(np.int32)
+        with _trace.span("serve.batch", batch=len(requests),
+                         prompt_len=prompts.shape[1], new_tokens=max_new):
+            self._sync()
+            t0 = time.perf_counter()
+            with _trace.span("serve.prefill", tokens=prompts.size):
+                batch = {"tokens": torch.from_numpy(prompts).to(self.device)}
+                logits, state = self.model.prefill(self.params, batch,
+                                                   self.cache_len)
+                self._sync()
+                t1 = time.perf_counter()
+                tok = self._sample(logits[:, -1], temperature)[:, None]
+            out = [tok]
+            for step in range(1, max_new):
+                with _trace.span("serve.decode_step", step=step):
+                    logits, state = self.model.decode(self.params, tok, state)
+                    tok = self._sample(logits[:, 0], temperature)[:, None]
+                out.append(tok)
+            tokens = torch.cat(out, dim=1)
+            self._sync()
+            t2 = time.perf_counter()
+            toks = tokens.cpu().numpy().astype(np.int32)
         return [
             Completion(r.request_id, toks[i, : r.max_new_tokens],
                        prefill_ms=(t1 - t0) * 1e3,

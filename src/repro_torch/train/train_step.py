@@ -6,7 +6,9 @@ The gradient is autograd's through the model's training forward
 (``Model.train_loss``): on the card every norm runs the rmsnorm kernel
 forward and backward (``kernels.rmsnorm.RMSNormFn``). The update is
 ``optim.adamw_update``, in place. ``abstract_train_state`` is the same
-state on the meta device: the dry run's shapes without allocation.
+state on the meta device: the dry run's shapes without allocation. A step
+records the spans ``train.step`` > {``train.forward``, ``train.backward``,
+``train.adamw``} (``obs.trace``) when tracing is on.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..models import Model
+from ..obs import trace as _trace
 from ..optim import AdamWConfig, adamw_init, adamw_update, \
     linear_warmup_cosine
 
@@ -52,18 +55,21 @@ def make_train_step(
     has ``grad`` None and is updated as the reference updates its zero
     gradient). Metrics are 0-d tensors on the device: nothing syncs."""
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        params = state["params"]
-        params.zero_grad(set_to_none=True)
-        loss, metrics = model.train_loss(params, batch)
-        loss.backward()
-        named = dict(params.named_parameters())
-        grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for name, p in named.items()}
-        lr_scale = linear_warmup_cosine(state["opt"]["step"], warmup,
-                                        total_steps)
-        _, opt, opt_metrics = adamw_update(named, grads, state["opt"],
-                                           opt_cfg, lr_scale)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        with _trace.span("train.step", tokens=batch["tokens"].numel()):
+            params = state["params"]
+            params.zero_grad(set_to_none=True)
+            with _trace.span("train.forward"):
+                loss, metrics = model.train_loss(params, batch)
+            with _trace.span("train.backward"):
+                loss.backward()
+            named = dict(params.named_parameters())
+            grads = {name: p.grad if p.grad is not None
+                     else torch.zeros_like(p) for name, p in named.items()}
+            lr_scale = linear_warmup_cosine(state["opt"]["step"], warmup,
+                                            total_steps)
+            _, opt, opt_metrics = adamw_update(named, grads, state["opt"],
+                                               opt_cfg, lr_scale)
+            metrics = {k: v.detach() for k, v in metrics.items()}
         return {"params": params, "opt": opt}, \
             {"loss": loss.detach(), **metrics, **opt_metrics}
 

@@ -1354,3 +1354,44 @@ def test_cluster_runtime_on_the_card_matches_cpu(cuda, monkeypatch):
     assert sorted(got) == sorted(want) == [0, 1, 3]
     for jid, losses in want.items():
         np.testing.assert_allclose(got[jid], losses, rtol=0, atol=1e-5)
+
+
+def test_spans_hold_their_launch_calls_on_the_profilers_clock(cuda):
+    """Under a profiler session recording CUDA activity alone (the
+    benchmark's), with no tracer installed, spans go to the session
+    tracer and stamp the clock of the profiler's host calls: each span
+    holds the one launch made inside it and not the one made just
+    before it (pads of launches outside any span around them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    n = 200
+    with trace.activate(None):
+        trace.session_spans()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(0)
+            for i in range(n):
+                torch.cuda._sleep(0)
+                with trace.span("probe", i=i):
+                    torch.cuda._sleep(0)
+            for _ in range(1024):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        spans = trace.session_spans()
+    assert [sp.attrs["i"] for sp in spans] == list(range(n))
+    calls = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                   for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CPU
+                   and ev.name() == "cudaLaunchKernel")
+    held = [[c for c in calls if sp.t0 <= c[0] and c[1] <= sp.t1]
+            for sp in spans]
+    assert [len(h) for h in held] == [1] * n
+    between = [c for c in calls if spans[0].t0 <= c[0] <= spans[-1].t1]
+    assert len(between) == 2 * n - 1
+    print(f"span start to its launch call: "
+          f"{min(h[0][0] - sp.t0 for h, sp in zip(held, spans))} ns "
+          f"at least; call end to span end: "
+          f"{min(sp.t1 - h[0][1] for h, sp in zip(held, spans))} ns")
