@@ -4,7 +4,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the six CUDA sources from ``src/repro_torch/kernels/csrc``
+It builds the seven CUDA sources from ``src/repro_torch/kernels/csrc``
 with nvcc, one nvcc per source in parallel, and drives the port's
 paths:
 
@@ -110,10 +110,16 @@ paths:
   * Command R+ at full width (d_model 12,288, 96 x 128 query heads over
     8 kv heads, d_ff 33,792, vocab 256,000 untied, bf16 params) cut to 1
     of its 64 layers, trained 3 steps of 16 x 64 tokens with the cluster
-    example's AdamW (lr 1e-3, bf16 moments), its update in slabs: the
-    peak reckoned first and printed beside the measured one, finite
-    losses, a finite non-zero gradient on every param, exact norm
-    launches, step times and the profiled step's idle share;
+    example's AdamW (lr 1e-3, bf16 moments) in its kernels: the peak
+    reckoned first and printed beside the measured one, finite losses, a
+    finite non-zero gradient on every param, exact norm and AdamW
+    launches, step times and the profiled step's idle share; then
+    AdamW's norm and update kernels over that state with one table, the
+    output table, whose gradient is dense as a tied table's is (4.72e9
+    params, a 3.15e9-element table): the norm checked within rel 1e-6 of
+    a float64 sum, one update bit for bit the plain route's, then both
+    timed beside their bounds, the plain route and, for the update,
+    ``torch.optim.AdamW(fused=True)``;
   * the dense GQA, MLA, vision, SSM, hybrid and enc-dec serving paths,
     each phase freeing the last model first: Qwen3-32B at full width
     (d_model 5120, 64 x 128 query heads over 8 kv heads, QK-norm, d_ff
@@ -2741,7 +2747,7 @@ def print_cluster(ex: dict, fw: dict, card: str) -> None:
               + (busy_text(b, 5) if b else "not profiled"))
 
 
-# ------------------------------------ training a wide model in slabs
+# ------------------------------------------- training a wide model
 def _finite_nonzero(t: torch.Tensor) -> bool:
     """Every element of ``t`` finite and one at least non-zero, checked
     over slabs of its flat view (no temporary of its size)."""
@@ -2756,15 +2762,17 @@ def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
     step (``AdamWConfig(lr=1e-3)``: moments in the params' dtype; remat
     "full", the reference's warm-up) on ``concrete_batch`` batches. The
     peak is reckoned from ``param_count`` before anything is allocated:
-    params, gradients and moments, the loss head's float32 logits,
-    log-probs and their gradient, and the update's float32 slab
-    temporaries (``optim.adamw.UPDATE_CHUNK`` elements, at most 5 alive).
-    Raises unless every loss is finite, every param has a finite non-zero
-    gradient after the first step and the norm launches are exact.
+    params, gradients and moments, and the loss head's float32 logits,
+    log-probs and their gradient (the update's kernels make no
+    temporaries). Raises unless every loss is finite, every param has a
+    finite non-zero gradient after the first step and the norm and AdamW
+    launches are exact (2T + 1 AdamW launches a step over T params).
     Returns the step times (CUDA events between step ends), tokens/s,
-    model FLOPs, the measured state and peak, and the profiled step's
-    idle share."""
+    model FLOPs, the measured state and peak, the profiled step's idle
+    share, and AdamW's two kernels checked and timed at the trained state
+    (``adamw_numbers``)."""
     from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.models import build_model, concrete_batch
     from repro_torch.optim import AdamWConfig, adamw
     from repro_torch.train import make_train_step, train_state
@@ -2776,15 +2784,13 @@ def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
     pb = torch.empty((), dtype=cfg.dtype("param")).element_size()
     mb = 4 if opt.fp32_moments else pb
     reckoned = {"state": n * 2 * (pb + mb) / 1e9,
-                "loss_head": 3 * 4 * tokens * cfg.vocab_size / 1e9,
-                "slabs": 5 * 4 * adamw.UPDATE_CHUNK / 1e9}
+                "loss_head": 3 * 4 * tokens * cfg.vocab_size / 1e9}
     reckoned["peak"] = sum(reckoned.values())
     print(f"training at width: {p['arch']}, a {cfg.num_layers}-layer cut, "
           f"{n} params; reckoned before allocating: params, gradients and "
           f"moments {reckoned['state']:.4f} GB + the loss head's float32 "
           f"logits, log-probs and their gradient {reckoned['loss_head']:.4f}"
-          f" GB + the update's slab temporaries {reckoned['slabs']:.4f} GB ="
-          f" {reckoned['peak']:.4f} GB of the card's "
+          f" GB = {reckoned['peak']:.4f} GB of the card's "
           f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
 
     torch.cuda.empty_cache()
@@ -2796,7 +2802,7 @@ def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
     init_s = time.perf_counter() - t0
     step_fn = make_train_step(model, opt)
     shape = InputShape("train_at_width", p["seq_len"], p["batch"], "train")
-    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = 0
+    rmsnorm.LAUNCHES = rmsnorm.LAUNCHES_BWD = kadamw.LAUNCHES = 0
     ends, losses, busy = [], [], None
     for k in range(p["steps"]):
         batch = concrete_batch(cfg, shape, seed=k, device="cuda")
@@ -2819,13 +2825,16 @@ def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
                                      f"on {bad}")
     torch.cuda.synchronize()
     launches = {"rmsnorm": rmsnorm.LAUNCHES,
-                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD}
-    want = expected_train_launches(cfg, p["steps"])
+                "rmsnorm_bwd": rmsnorm.LAUNCHES_BWD,
+                "adamw": kadamw.LAUNCHES}
+    params = state["params"]
+    tensors = len(dict(params.named_parameters()))
+    want = {**expected_train_launches(cfg, p["steps"]),
+            "adamw": p["steps"] * (2 * tensors + 1)}
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses {losses}")
-    params = state["params"]
     out = dict(layers=cfg.num_layers, params=n, init_s=init_s,
                losses=losses, launches=launches, reckoned=reckoned,
                grads_checked=len(dict(params.named_parameters())),
@@ -2844,8 +2853,116 @@ def train_at_width(rmsnorm, p: dict = CMDR_TRAIN_POINT) -> dict:
     if not out["peak_gb"] * 1e9 < torch.cuda.get_device_properties(0) \
             .total_memory:
         raise AssertionError(f"peak {out['peak_gb']} GB")
-    del state, params, metrics, batch
+    del metrics, batch
     torch.cuda.empty_cache()
+    out["adamw"] = adamw_numbers(kadamw, adamw, params, state["opt"], opt)
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def adamw_numbers(kadamw, adamw, params, opt_state: dict, cfg) -> dict:
+    """AdamW's two kernels over a trained state (``params``' ``.grad``,
+    the moments of ``opt_state``) less the input table ``embed.table``:
+    the state of the point's model with one table, as Command R+ ties it
+    (at 1 layer 4.72e9 params, a table of 3.15e9). The output table is the
+    one kept, since its gradient, from the head, is dense on every row, as
+    a tied table's is; the input table's rows that no token reached would
+    keep zero moments.
+
+    Both kernels are first checked against their plain version at these
+    shapes: the norm within rel 1e-6 of a float64 sum of the same
+    gradients, and one update of each tensor (the table in slabs of
+    ``UPDATE_CHUNK`` elements of its flat view) bit for bit that of the
+    plain route on a clone of the slab, from the same clip, bias
+    corrections and lr. Then each is timed beside its bound (every byte
+    it must move once, over the card's memory rate: p, g, m, v read and
+    p, m, v written; g read for the norm), the plain route's time (the
+    torch norm and update in slabs) and, for the update, the time of
+    ``torch.optim.AdamW(fused=True)`` over the same tensors (no clip; a
+    yardstick the port never calls). Times by CUDA events; the update
+    runs on in place, so each call takes the state the last one left.
+    Raises on a failed check."""
+    named = {k: q for k, q in params.named_parameters()
+             if k != "embed.table"}
+    grads = {k: q.grad for k, q in named.items()}
+    m, v = opt_state["m"], opt_state["v"]
+    dev = next(iter(named.values())).device
+    f32 = {"dtype": torch.float32, "device": dev}
+    clip, lr = torch.tensor(0.5, **f32), torch.tensor(cfg.lr, **f32)
+    bc1, bc2 = (1 - torch.tensor(b, **f32) ** 4 for b in (cfg.b1, cfg.b2))
+    hyper = (cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay)
+
+    def slabs(t):
+        return t.view(-1).split(adamw.UPDATE_CHUNK)
+
+    kernel_norm = float(kadamw.global_norm_cuda(grads.values()))
+    exact = sum(float(torch.sum(part.to(torch.float64).square()))
+                for g in grads.values() for part in slabs(g)) ** 0.5
+    if not abs(kernel_norm - exact) <= 1e-6 * exact:
+        raise AssertionError(f"AdamW norm kernel {kernel_norm!r} against "
+                             f"the float64 sum {exact!r}")
+    checked = 0
+    for k, q in named.items():
+        for p_, g, m_, v_ in zip(*(slabs(t) for t in (q.data, grads[k], m[k],
+                                                      v[k]))):
+            wp, wm, wv = (t.clone() for t in (p_, m_, v_))
+            kadamw.adamw_cuda(p_, g, m_, v_, clip, bc1, bc2, lr, *hyper)
+            adamw._update_slabs(k, wp, g, wm, wv, clip, bc1, bc2, lr, cfg)
+            for got, want, what in ((p_, wp, "p"), (m_, wm, "m"),
+                                    (v_, wv, "v")):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"AdamW update kernel on {k!r} ({what}, elements "
+                        f"{checked}..{checked + p_.numel()}) differs from "
+                        f"the plain route")
+            checked += p_.numel()
+            del wp, wm, wv
+
+    def update():
+        for k, q in named.items():
+            kadamw.adamw_cuda(q.data, grads[k], m[k], v[k], clip, bc1, bc2,
+                              lr, *hyper)
+
+    def update_plain():
+        for k, q in named.items():
+            adamw._update_slabs(k, q.data, grads[k], m[k], v[k], clip, bc1,
+                                bc2, lr, cfg)
+
+    def norm_plain():
+        return torch.sqrt(sum(adamw._square_sum(g) for g in grads.values()))
+
+    update_bytes = sum(q.numel() * (3 * q.element_size()
+                                    + 4 * m[k].element_size())
+                       for k, q in named.items())
+    norm_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    out = {"elements": sum(q.numel() for q in named.values()),
+           "tensors": len(named), "kept_table": "unembed.table",
+           "norm": {"ms": _time_ms(lambda: kadamw.global_norm_cuda(
+                        grads.values()), reps=20, warmup=2),
+                    "bound_ms": norm_bytes / HBM_BYTES_PER_S * 1e3,
+                    "bytes": norm_bytes,
+                    "plain_ms": _time_ms(norm_plain, reps=5, warmup=1),
+                    "value": kernel_norm, "float64_value": exact,
+                    "plain_value": float(norm_plain()),
+                    "launches": len(named) + 1},
+           "update": {"ms": _time_ms(update, reps=10, warmup=2),
+                      "bound_ms": update_bytes / HBM_BYTES_PER_S * 1e3,
+                      "bytes": update_bytes,
+                      "plain_ms": _time_ms(update_plain, reps=3, warmup=1),
+                      "launches": len(named),
+                      "bits_checked_elements": checked}}
+    library = torch.optim.AdamW(
+        list(named.values()), lr=cfg.lr, betas=(cfg.b1, cfg.b2),
+        eps=cfg.eps, weight_decay=cfg.weight_decay, fused=True)
+    for k, q in named.items():
+        library.state[q] = {"step": torch.tensor(4.0, **f32),
+                            "exp_avg": m[k], "exp_avg_sq": v[k]}
+    out["update"]["library_ms"] = _time_ms(library.step, reps=10, warmup=2)
+    for part in ("norm", "update"):
+        r = out[part]
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    del library
     return out
 
 
@@ -2868,6 +2985,25 @@ def print_train_at_width(label: str, p: dict, tr: dict, card: str) -> None:
           f"measured {tr['state_gb']:.4f} GB (reckoned {r['state']:.4f}); "
           f"peak {tr['peak_gb']:.4f} GB (reckoned {r['peak']:.4f} GB); "
           f"profiled step: {busy_text(tr['busy'])}")
+    a = tr["adamw"]
+    for part, what in (("norm", "global norm (sum of squares + last pass)"),
+                       ("update", "update")):
+        k = a[part]
+        print(f"{label} AdamW {what} over {a['elements']} params in "
+              f"{a['tensors']} tensors: {k['ms']:.4f} ms (CUDA events, "
+              f"{k['launches']} launches) against its bound "
+              f"{k['bound_ms']:.4f} ms ({k['bytes'] / 1e9:.4f} GB at 3.35 "
+              f"TB/s; {k['share_of_bound']:.4f} of it); plain route "
+              f"{k['plain_ms']:.4f} ms"
+              + (f"; library_ms (torch.optim.AdamW(fused=True), no clip) "
+                 f"{k['library_ms']:.4f} ms" if "library_ms" in k else
+                 f"; norm {k['value']:.9g} (float64 sum "
+                 f"{k['float64_value']:.12g}, within rel 1e-6: checked; "
+                 f"plain route {k['plain_value']:.9g})")
+              + (f"; bit for bit the plain route's over all "
+                 f"{k['bits_checked_elements']} elements: checked"
+                 if "bits_checked_elements" in k else "")
+              + f" [{card}]")
 
 
 # ------------------------------------------------------------ dry run
@@ -3261,8 +3397,8 @@ def main() -> int:
     print_cluster(ex, fw, card)
     print(f"cluster phase wall {time.perf_counter() - t0:.2f} s")
 
-    # 8a'''. Command R+ at full width, 1 layer, trained with the update in
-    # slabs
+    # 8a'''. Command R+ at full width, 1 layer, trained with AdamW's
+    # kernels, which are then timed at its state
     t0 = time.perf_counter()
     tw = train_at_width(rmsnorm)
     print_train_at_width("training at width", CMDR_TRAIN_POINT, tw, card)
@@ -3499,6 +3635,11 @@ def main() -> int:
                      "qwen3_qk_norm": bqk},
          "command_r_plus_train": {"launches": tw["launches"]["rmsnorm_bwd"],
                                   **bcmdr_train}},
+        # AdamW's step: no TPU kernel (the reference's update is plain jnp)
+        {"name": "adamw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/adamw.cu",
+         "replaces": None, "launches": tw["launches"]["adamw"],
+         "command_r_plus_train": tw["adamw"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",

@@ -12,9 +12,16 @@ torch version:
     flash_attention — forward online-softmax attention over the model's
                 (B, S, H, D) layout, grouped kv heads, causal and window
                 masks (replaces the Pallas ``_flash_kernel``)
-    ops       — the model's routed entry points to the last two
+    adamw     — AdamW's step: the global norm's sum of squares in float64
+                and each param tensor's update, read and written once
+                (replaces no Pallas kernel: the reference's update is plain
+                jnp; its plain version is ``optim.adamw``'s torch route)
+    ops       — the model's routed entry points to rmsnorm and flash
+                attention
 
 Sources live in ``csrc/``; ``_build`` compiles them with nvcc at first
 use and loads them with ctypes. A wrapper given CPU tensors runs the
-plain version; given CUDA tensors it launches the kernel or raises.
+plain version; given CUDA tensors it launches the kernel or raises. The
+adamw wrappers are the exception: they take CUDA tensors only, and
+``optim.adamw.route`` picks between them and the plain route.
 """

@@ -9,7 +9,9 @@ first use into its own shared library:
 The two float64 kernels of the offer path add ``--fmad=false``, which
 keeps nvcc from contracting a multiply and an add into one FMA: they are
 held bit-identical to float64 numpy references, which round after every
-operation. The model kernels (rmsnorm, both flash attention routes) are
+operation. AdamW's kernels add it too, with IEEE division and sqrt named
+(nvcc's defaults): the update is held bit for bit to the plain torch
+route, which rounds after every operation. The model kernels (rmsnorm, both flash attention routes) are
 held to a tolerance and build without it (rmsnorm's backward too). The library lands in ``build/``
 next to this file (ignored by git), named by a hash of the source and
 its flags, so an edited source is rebuilt and an unchanged one is loaded.
@@ -43,6 +45,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
     "rmsnorm_bwd": (),
     "flash_attention": (),
     "flash_attention_tc": (),
+    "adamw": ("--fmad=false", "--prec-div=true", "--prec-sqrt=true"),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

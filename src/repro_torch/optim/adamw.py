@@ -17,15 +17,32 @@ Params, grads and moments are flat dicts of tensors by parameter name
 (``dict(module.named_parameters())``). Where the reference returns new
 trees, ``adamw_update`` writes the params and moments IN PLACE (the
 values are the same): a full-width model's state does not fit twice.
-Nor do its float32 temporaries: the update runs over slabs of
-``UPDATE_CHUNK`` elements of each tensor's flat view, and the global
-norm sums each tensor's squares in the same slabs, so no float32 copy
-of a whole tensor is made (a 256,000 x 12,288 table would need 12.6 GB
-for each). The update is elementwise, so its params and moments are
-bit for bit those of one piece; a tensor of at most one slab sums its
-squares as one piece, a larger one in slab order. The update records the
-span ``train.adamw`` (the global norm included), and each slab
-``train.adamw.slab`` (``obs.trace``).
+
+Two routes, picked by ``route`` from the tensors alone (no option):
+
+  * **kernel**: plain CUDA tensors, params bf16 or float32, gradients of
+    the params' dtype, moments of the params' dtype or float32. The norm
+    and each tensor's update run in the hand-written kernels of
+    ``kernels.adamw`` (``csrc/adamw.cu``): each tensor read and written
+    once, no float32 temporaries. Given the same norm they write the
+    plain route's params and moments bit for bit; the norm sums the
+    squares in float64, so it may differ from the plain route's by
+    float32 rounding.
+  * **plain**: CPU and meta tensors (the dry run's meta DTensors too), in
+    torch:
+    the kernels' plain version. The update runs over slabs of
+    ``UPDATE_CHUNK`` elements of each tensor's flat view, and the global
+    norm sums each tensor's squares in the same slabs, so no float32 copy
+    of a whole tensor is made (a 256,000 x 12,288 table would need
+    12.6 GB for each). The update is elementwise, so its params and
+    moments are bit for bit those of one piece; a tensor of at most one
+    slab sums its squares as one piece, a larger one in slab order.
+
+Any other mix (a float16 param, a gradient of another dtype than its
+param, tensors on two devices, a DTensor on the card) raises. The update
+records the span ``train.adamw`` (``route``; ``elements`` and ``slabs``,
+the update launches or slabs; the global norm included), and each launch
+or slab ``train.adamw.slab`` (``obs.trace``).
 """
 from __future__ import annotations
 
@@ -34,6 +51,7 @@ from typing import Dict, Mapping, Tuple, Union
 
 import torch
 
+from ..kernels import adamw as _kernels
 from ..obs import trace as _trace
 
 Tensors = Mapping[str, torch.Tensor]
@@ -90,9 +108,76 @@ def _square_sum(g: torch.Tensor) -> torch.Tensor:
                for part in _slabs(g, "a gradient"))
 
 
+def _plain(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the plain route: a CPU or meta tensor, the dry
+    run's meta DTensors among them."""
+    return t.device.type in ("cpu", "meta")
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in float32."""
-    return torch.sqrt(sum(_square_sum(g) for g in tensors.values()))
+    """sqrt of the sum of every element's square, in float32: in torch
+    where every tensor takes the plain route, else in the norm kernels
+    (which raise on what they do not take)."""
+    if all(_plain(g) for g in tensors.values()):
+        return torch.sqrt(sum(_square_sum(g) for g in tensors.values()))
+    return _kernels.global_norm_cuda(tensors.values())
+
+
+def route(params: Tensors, grads: Tensors, state: Dict) -> str:
+    """``"plain"`` where every param, gradient and moment takes the plain
+    route, ``"kernel"`` where each is a plain (not a DTensor) tensor on one
+    CUDA device of dtypes the kernels take (``kernels.adamw.supported``);
+    raises on any other mix."""
+    from torch.distributed.tensor import DTensor
+    quads = {name: (p, grads[name], state["m"][name], state["v"][name])
+             for name, p in params.items()}
+    if all(_plain(t) for ts in quads.values() for t in ts):
+        return "plain"
+    device = next(iter(params.values())).device
+    for name, ts in quads.items():
+        if any(isinstance(t, DTensor) for t in ts):
+            raise ValueError(
+                f"the AdamW kernels take plain CUDA tensors; {name!r} has a "
+                f"DTensor on {device}")
+        if any(_plain(t) or t.device != device for t in ts):
+            raise ValueError(
+                f"AdamW takes every param, gradient and moment on one CUDA "
+                f"device or none; {name!r} has them on "
+                f"{[str(t.device) for t in ts]}, the first param on {device}")
+        if not _kernels.supported(*(t.dtype for t in ts)):
+            raise ValueError(
+                f"the AdamW kernel takes (param, moment) dtypes "
+                f"{_kernels.PAIRS} with gradients of the param's; "
+                f"{name!r} has {[t.dtype for t in ts]}")
+    return "kernel"
+
+
+def _update_slabs(name: str, p: torch.Tensor, g: torch.Tensor,
+                  m: torch.Tensor, v: torch.Tensor, clip: torch.Tensor,
+                  bc1: torch.Tensor, bc2: torch.Tensor, lr: torch.Tensor,
+                  cfg: AdamWConfig) -> None:
+    """The plain route's update of one param, slab by slab in place: the
+    kernel's plain version."""
+    b1, b2 = cfg.b1, cfg.b2
+    slabs = zip(*(_slabs(x, f"{what} {name!r}")
+                  for what, x in (("param", p), ("gradient", g), ("m", m),
+                                  ("v", v))))
+    for p_, g, m, v in slabs:
+        _trace.add("elements", p_.numel())
+        _trace.add("slabs", 1)
+        with _trace.span("train.adamw.slab", elements=p_.numel()):
+            g32 = g.to(torch.float32) * clip
+            m32 = m.to(torch.float32) * b1
+            m32.add_((1 - b1) * g32)
+            v32 = v.to(torch.float32) * b2
+            v32.add_((1 - b2) * torch.square(g32))
+            del g32
+            delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
+            m.copy_(m32)
+            v.copy_(v32)
+            del m32, v32
+            delta.add_(cfg.weight_decay * p_.to(torch.float32))
+            p_.copy_(p_.to(torch.float32) - lr * delta)
 
 
 @torch.no_grad()
@@ -103,7 +188,8 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict,
     """One AdamW step over every param of ``params`` (``grads`` has the
     same names). Updates ``params`` and the state's moments in place and
     returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
-    with _trace.span("train.adamw") as sp:
+    how = route(params, grads, state)
+    with _trace.span("train.adamw", route=how) as sp:
         step = state["step"] + 1
         gnorm = global_norm(grads)
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -118,26 +204,13 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict,
                                       device=t.device)
 
         for name, p in params.items():
-            slabs = zip(*(_slabs(x, f"{what} {name!r}")
-                          for what, x in (("param", p),
-                                          ("gradient", grads[name]),
-                                          ("m", state["m"][name]),
-                                          ("v", state["v"][name]))))
-            for p_, g, m, v in slabs:
-                sp.add("elements", p_.numel()).add("slabs", 1)
-                with _trace.span("train.adamw.slab", elements=p_.numel()):
-                    g32 = g.to(torch.float32) * clip
-                    m32 = m.to(torch.float32) * b1
-                    m32.add_((1 - b1) * g32)
-                    v32 = v.to(torch.float32) * b2
-                    v32.add_((1 - b2) * torch.square(g32))
-                    del g32
-                    delta = (m32 / bc1).div_((v32 / bc2).sqrt_()
-                                             .add_(cfg.eps))
-                    m.copy_(m32)
-                    v.copy_(v32)
-                    del m32, v32
-                    delta.add_(cfg.weight_decay * p_.to(torch.float32))
-                    p_.copy_(p_.to(torch.float32) - lr * delta)
+            g, m, v = grads[name], state["m"][name], state["v"][name]
+            if how == "plain":
+                _update_slabs(name, p, g, m, v, clip, bc1, bc2, lr, cfg)
+                continue
+            sp.add("elements", p.numel()).add("slabs", 1)
+            with _trace.span("train.adamw.slab", elements=p.numel()):
+                _kernels.adamw_cuda(p, g, m, v, clip, bc1, bc2, lr, b1, b2,
+                                    cfg.eps, cfg.weight_decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

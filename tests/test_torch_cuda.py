@@ -11,7 +11,10 @@ SeamlessM4T) launching the model kernels and answering as the CPU run
 does; rmsnorm's backward kernel against its plain version, its autograd
 function reaching a float32 and a bf16 scale, raising on a failed
 build, and a reduced train step on the card matching the CPU's; AdamW's
-update in slabs writing what one piece writes, bit for bit; one train
+plain update in slabs writing what one piece writes, and its kernel
+route writing what the plain route writes, bit for bit (past 2^31
+elements too), its norm kernel deterministic and within float64 of the
+sum, its launches counted and its refusals; one train
 step of Command R+ at full width (1 layer, its vocab cut) matching the
 CPU's; one full-width MoE layer routing as the CPU does, and one
 full-width MLA layer of each MLA config, one Hymba block and one
@@ -520,13 +523,15 @@ def _one_piece_norm(tensors):
     (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
 def test_adamw_slabs_equal_one_piece_on_the_card(cuda, monkeypatch, dtype,
                                                  fp32_moments):
-    """Three AdamW steps with the update in slabs of 4099 elements (no
+    """Three AdamW steps on the plain route (``_plain`` patched to take
+    the card's tensors) with the update in slabs of 4099 elements (no
     size here divides) write the params and moments of the one-piece
     update bit for bit, given the same grad norm; the slabbed norm is
     the one-piece norm within rel 1e-6."""
     from repro_torch.optim import AdamWConfig, adamw, adamw_init, \
         adamw_update, global_norm
 
+    monkeypatch.setattr(adamw, "_plain", lambda t: True)
     gen = torch.Generator().manual_seed(5)
     shapes = {"table": (1000, 257), "w": (33, 17), "b": (7,)}
     p0 = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
@@ -553,6 +558,191 @@ def test_adamw_slabs_equal_one_piece_on_the_card(cuda, monkeypatch, dtype,
         for a, b in ((p1[n], p2[n]), (s1["m"][n], s2["m"][n]),
                      (s1["v"][n], s2["v"][n])):
             assert a.dtype == b.dtype and torch.equal(a, b), n
+
+
+def _flat_view(values: torch.Tensor, dtype, off: int, device):
+    """``values`` in ``dtype`` on ``device``, as a view ``off`` elements
+    into a fresh buffer: 16-byte aligned at off 0, else off by off * the
+    element size."""
+    buf = torch.zeros(values.numel() + 16, dtype=dtype, device=device)
+    view = buf[off:off + values.numel()].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+#: name: (shape, elements the param, its gradient, m and v lie off a
+#: 16-byte boundary): sizes that no 8 divides, a 0-d tensor, all four off
+#: alike (a head of elements before the first whole chunk) and off unlike
+#: (element-wise chunks)
+ADAMW_CASES = {"table": ((999, 257), (0, 0, 0, 0)),
+               "w": ((33, 17), (0, 0, 0, 0)), "b": ((7,), (0, 0, 0, 0)),
+               "s": ((), (0, 0, 0, 0)), "off": ((61, 7), (1, 1, 1, 1)),
+               "odd": ((5, 9), (1, 2, 0, 0))}
+
+
+@pytest.mark.parametrize("dtype,fp32_moments", [
+    (torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, True)])
+@pytest.mark.parametrize("grad_clip", [1.0, 100.0])
+def test_adamw_kernel_route_writes_the_plain_routes_bits(
+        cuda, monkeypatch, dtype, fp32_moments, grad_clip):
+    """Three AdamW steps on the kernel route and on the plain slabbed
+    route, on the card from the same state and gradients, write the same
+    params and moments bit for bit, given the same grad norm (the
+    one-piece sum: ``global_norm`` patched), zero moments included; one
+    update launch a tensor a step."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import AdamWConfig, adamw, adamw_update
+
+    gen = torch.Generator().manual_seed(6)
+    p0 = {n: torch.randn(s, generator=gen)
+          for n, (s, _) in ADAMW_CASES.items()}
+    g0 = {n: torch.randn(s, generator=gen) * 0.5
+          for n, (s, _) in ADAMW_CASES.items()}
+    for t in g0.values():
+        t.view(-1)[::5] = 1e-12            # |g| near eps, and zero
+        t.view(-1)[1::7] = 0.0             # gradients: zero moments
+    cfg = AdamWConfig(grad_clip=grad_clip, fp32_moments=fp32_moments)
+    mdt = torch.float32 if fp32_moments else dtype
+    monkeypatch.setattr(adamw, "global_norm", _one_piece_norm)
+    runs = []
+    for plain in (False, True):
+        monkeypatch.setattr(adamw, "_plain", lambda t, plain=plain: plain)
+        params = {n: _flat_view(p0[n], dtype, offs[0], cuda)
+                  for n, (_, offs) in ADAMW_CASES.items()}
+        state = {"m": {n: _flat_view(torch.zeros(s), mdt, offs[2], cuda)
+                       for n, (s, offs) in ADAMW_CASES.items()},
+                 "v": {n: _flat_view(torch.zeros(s), mdt, offs[3], cuda)
+                       for n, (s, offs) in ADAMW_CASES.items()},
+                 "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+        launches = kadamw.LAUNCHES
+        for step in range(3):
+            grads = {n: _flat_view(g0[n] * (step + 1), dtype, offs[1], cuda)
+                     for n, (_, offs) in ADAMW_CASES.items()}
+            params, state, _ = adamw_update(params, grads, state, cfg,
+                                            torch.tensor(0.5 + 0.25 * step,
+                                                         device=cuda))
+        assert kadamw.LAUNCHES - launches == (0 if plain
+                                              else 3 * len(ADAMW_CASES))
+        runs.append((params, state))
+    # "off": every pointer off 16 bytes, aligned together some elements in
+    # (a head before the first chunk); "odd": the param and its gradient
+    # off by unlike amounts, so no element aligns both (single elements)
+    (p1, s1), (p2, s2) = runs
+    assert all(t.data_ptr() % 16 for t in (p1["off"], grads["off"],
+                                           s1["m"]["off"], s1["v"]["off"]))
+    assert p1["odd"].data_ptr() % 16 != grads["odd"].data_ptr() % 16
+    for n in ADAMW_CASES:
+        for a, b in ((p1[n], p2[n]), (s1["m"][n], s2["m"][n]),
+                     (s1["v"][n], s2["v"][n])):
+            assert a.dtype == b.dtype and torch.equal(a, b), n
+
+
+def test_adamw_kernel_past_two_to_the_31_writes_the_plain_routes_bits(
+        cuda, monkeypatch):
+    """One bf16 tensor of 2^31 + 9 elements (64-bit indices; the tied
+    table of Command R+ has 3.15e9): one kernel-route step writes the
+    plain route's params and moments bit for bit, given the same norm;
+    the norm kernel reads it within rel 1e-6 of a float64 sum."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import AdamWConfig, adamw, adamw_update
+
+    n = (1 << 31) + 9
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p0 = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+    g = (torch.randn(n, generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    want = sum(float(torch.sum(part.double() ** 2))
+               for part in g.split(1 << 28)) ** 0.5
+    norm = kadamw.global_norm_cuda([g])
+    assert abs(float(norm) - want) <= 1e-6 * want
+    monkeypatch.setattr(adamw, "global_norm", lambda grads: norm)
+    cfg = AdamWConfig()
+    runs = []
+    for plain in (False, True):
+        monkeypatch.setattr(adamw, "_plain", lambda t, plain=plain: plain)
+        params = {"table": p0.clone()}
+        state = {"m": {"table": torch.zeros_like(p0)},
+                 "v": {"table": torch.zeros_like(p0)},
+                 "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+        adamw_update(params, {"table": g}, state, cfg)
+        runs.append((params["table"], state["m"]["table"],
+                     state["v"]["table"]))
+        del params, state
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_norm_kernel_is_deterministic_and_within_float64(cuda, dtype):
+    """The norm kernel over gradients of several sizes (one of 3,000,001
+    elements, a 0-d one, a view off 16 bytes) is within rel 1e-6 of the
+    float64 sum of their float32 squares and the same bits in two calls."""
+    from repro_torch.kernels import adamw as kadamw
+
+    gen = torch.Generator().manual_seed(9)
+    shapes = [(3_000_001,), (4096, 1000), (7,), (), (257, 3)]
+    grads = [torch.randn(s, generator=gen).to(dtype).to(cuda) for s in shapes]
+    grads.append(_flat_view(torch.randn(1001, generator=gen), dtype, 3, cuda))
+    want = sum(float(torch.sum(g.float().double() ** 2)) for g in grads) ** 0.5
+    launches = kadamw.LAUNCHES
+    a = kadamw.global_norm_cuda(grads)
+    b = kadamw.global_norm_cuda(grads)
+    assert kadamw.LAUNCHES - launches == 2 * (len(grads) + 1)
+    assert a.dtype == torch.float32 and a.shape == ()
+    assert torch.equal(a, b)
+    assert abs(float(a) - want) <= 1e-6 * want
+
+
+def test_adamw_step_launches_and_span_on_the_kernel_route(cuda):
+    """A step over T param tensors makes 2T + 1 launches (T sums of
+    squares, the norm's last pass, T updates); ``train.adamw`` records
+    route ``kernel``, the param count and T update launches, each in its
+    own ``train.adamw.slab``."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.obs import trace
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    gen = torch.Generator().manual_seed(10)
+    shapes = {"table": (1000, 257), "w": (33, 17), "b": (7,)}
+    params = {n: torch.randn(s, generator=gen).to(torch.bfloat16).to(cuda)
+              for n, s in shapes.items()}
+    grads = {n: torch.randn_like(p) for n, p in params.items()}
+    state = adamw_init(params, AdamWConfig())
+    tracer = trace.Tracer()
+    for step in range(2):
+        launches = kadamw.LAUNCHES
+        with trace.activate(tracer):
+            _, state, _ = adamw_update(params, grads, state, AdamWConfig())
+        assert kadamw.LAUNCHES - launches == 2 * len(shapes) + 1
+    torch.cuda.synchronize()
+    opt = [sp for sp in tracer.spans if sp.name == "train.adamw"]
+    n = sum(p.numel() for p in params.values())
+    assert [sp.attrs for sp in opt] == [
+        {"route": "kernel", "elements": n, "slabs": len(shapes)}] * 2
+    slabs = [sp for sp in tracer.spans if sp.name == "train.adamw.slab"]
+    assert [sp.attrs["elements"] for sp in slabs] == \
+        [p.numel() for p in params.values()] * 2
+    assert int(state["step"]) == 2
+
+
+@pytest.mark.parametrize("case", ["float16", "grad_dtype", "cpu_moment"])
+def test_adamw_refuses_on_the_card_what_the_kernels_do_not_take(cuda, case):
+    """A float16 param, a gradient of another dtype than its param, or a
+    moment left on the CPU raises before any launch: no route takes it."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
+    params = {"w": torch.ones((33, 17), dtype=dtype, device=cuda)}
+    grads = {"w": torch.ones_like(params["w"])}
+    state = adamw_init(params, AdamWConfig())
+    if case == "grad_dtype":
+        grads["w"] = grads["w"].float()
+    elif case == "cpu_moment":
+        state["m"]["w"] = state["m"]["w"].cpu()
+    launches = kadamw.LAUNCHES
+    with pytest.raises(ValueError):
+        adamw_update(params, grads, state, AdamWConfig())
+    assert kadamw.LAUNCHES == launches
 
 
 def test_full_width_command_r_plus_step_matches_cpu(cuda):

@@ -196,8 +196,8 @@ def test_a_served_batch_gives_the_span_tree(no_tracer):
 @pytest.mark.parametrize("remat", ["none", "full"])
 def test_a_train_step_gives_the_span_tree(monkeypatch, remat):
     """``train_step``: forward, backward and the update under one
-    ``train.step``; the slabs' ``elements`` sum to the param count; under
-    full remat the recomputed forward's spans open in the backward."""
+    ``train.step``; the update takes the plain route on the CPU, and its
+    slabs' ``elements`` sum to the param count; under full remat the recomputed forward's spans open in the backward."""
     monkeypatch.setattr(adamw_mod, "UPDATE_CHUNK", 5000)
     cfg = _cfg(remat)
     tracer = trace.Tracer()
@@ -221,7 +221,8 @@ def test_a_train_step_gives_the_span_tree(monkeypatch, remat):
     n_params = sum(p.numel() for p in params.values())
     assert {sp.name for sp in slabs} == {"train.adamw.slab"}
     assert sum(sp.attrs["elements"] for sp in slabs) == n_params
-    assert opt.attrs == {"elements": n_params, "slabs": len(slabs)}
+    assert opt.attrs == {"route": "plain", "elements": n_params,
+                         "slabs": len(slabs)}
     assert len(slabs) > len(params)
 
 
