@@ -7,15 +7,20 @@ mixture of experts the k routed experts and the shared ones, never all
 of them), attention's two products over the keys a query may see, the
 output head where logits are taken. Training is PaLM's count, 3 times
 the forward's products and no recomputation (copied from
-``chip_smoke.model_flops_per_step``). Kernel bytes count each input read
-once and each output written once.
+``chip_smoke.model_flops_per_step``). Each count is summed layer by
+layer from the layer's block (``blocks/<block>.py``: its matrices, its
+attention's width, the keys a query sees at each position). Kernel bytes
+count each input read once and each output written once.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
+import numpy as np
+
+from . import blocks
 from .layout import Dims
 
 PEAKS: Dict = json.loads((Path(__file__).parent / "peaks.json").read_text())
@@ -23,37 +28,37 @@ BF16_FLOPS = PEAKS["bf16_flops_per_s"]
 HBM_BYTES = PEAKS["hbm_bytes_per_s"]
 
 
-def layer_matrix_params(m: Dims, active: bool = True) -> int:
-    """Weights of one layer's matrix products a token passes through
+def layer_matrix_params(m: Dims, active: bool = True, i: int = 0) -> int:
+    """Weights of layer i's matrix products a token passes through
     (router included; only k routed experts with ``active``)."""
-    d = m.d
-    if m.block == "gqa_dense":
-        hd = m.head_dim
-        attn = d * m.heads * hd * 2 + d * m.kv_heads * hd * 2
-        return attn + 3 * d * m.d_ff
-    H = m.heads
-    attn = (d * m.q_lora + m.q_lora * H * (m.nope + m.rope)
-            + d * (m.kv_lora + m.rope) + m.kv_lora * H * (m.nope + m.v_dim)
-            + H * m.v_dim * d)
-    experts = m.top_k if active else m.experts
-    ffn = d * m.experts + (experts + m.shared) * 3 * d * m.expert_ff
-    return attn + ffn
+    return blocks.load(m.block).layer_matrix_params(m, i, active)
 
 
-def attn_width(m: Dims) -> int:
-    """q.k width plus p.v width of one head."""
-    if m.block == "gqa_dense":
-        return 2 * m.head_dim
-    return m.nope + m.rope + m.v_dim
+def attn_width(m: Dims, i: int = 0) -> int:
+    """q.k width plus p.v width of one head of layer i."""
+    return blocks.load(m.block).attn_width(m, i)
 
 
-def forward_flops(m: Dims, tokens: int, keys_seen: float,
+def layer_pairs(m: Dims, B: int, lo: int, hi: int) -> List[int]:
+    """(query, key) pairs one head sees in each layer, in all, for B
+    sequences' queries at positions lo .. hi - 1 (the block's
+    ``keys_seen``)."""
+    block = blocks.load(m.block)
+    pos = np.arange(lo, hi, dtype=np.int64)
+    return [B * int(block.keys_seen(m, i, pos).sum())
+            for i in range(m.layers)]
+
+
+def forward_flops(m: Dims, tokens: int, keys_seen: Sequence[int],
                   head_rows: int) -> float:
     """One forward: ``tokens`` tokens through every layer, attention over
-    ``keys_seen`` (query, key) pairs a layer and head in all, the head
+    ``keys_seen[i]`` (query, key) pairs a head of layer i in all, the head
     over ``head_rows`` rows."""
-    return (2.0 * m.layers * layer_matrix_params(m) * tokens
-            + 2.0 * m.layers * m.heads * attn_width(m) * keys_seen
+    block = blocks.load(m.block)
+    return (sum(2.0 * block.layer_matrix_params(m, i, True) * tokens
+                for i in range(m.layers))
+            + sum(2.0 * m.heads * block.attn_width(m, i) * keys_seen[i]
+                  for i in range(m.layers))
             + 2.0 * m.d * m.vocab * head_rows)
 
 
@@ -64,22 +69,26 @@ def causal_pairs(S: int) -> float:
 def serve_batch_flops(m: Dims, B: int, S: int, new: int) -> float:
     """Model FLOPs of one served batch: the prefill of B prompts of S
     tokens (logits at the last position) and new - 1 decode steps, step j
-    attending over S + j + 1 keys."""
-    prefill = forward_flops(m, B * S, B * causal_pairs(S), B)
-    decode = sum(forward_flops(m, B, B * (S + j + 1), B)
+    a query at position S + j."""
+    prefill = prefill_flops(m, B, S)
+    decode = sum(forward_flops(m, B, layer_pairs(m, B, S + j, S + j + 1), B)
                  for j in range(new - 1))
     return prefill + decode
 
 
 def prefill_flops(m: Dims, B: int, S: int) -> float:
-    return forward_flops(m, B * S, B * causal_pairs(S), B)
+    return forward_flops(m, B * S, layer_pairs(m, B, 0, S), B)
 
 
 def train_step_flops(m: Dims, n_matrix_params: int, tokens: int,
                      seq_len: int) -> float:
-    """PaLM's count: 6 x the matrix params x tokens, plus 12 L H hd S a
-    token for attention's two products over the whole S x S."""
-    attn = 12 * m.layers * m.heads * m.head_dim * seq_len
+    """PaLM's count: 6 x the matrix params x tokens, plus 12 H hd K a
+    token and layer for attention's two products, K the keys the last
+    position sees there (S, over the whole S x S, in a causal layer)."""
+    block = blocks.load(m.block)
+    last = np.array([seq_len - 1], dtype=np.int64)
+    attn = sum(12 * m.heads * m.head_dim * int(block.keys_seen(m, i, last)[0])
+               for i in range(m.layers))
     return tokens * (6 * n_matrix_params + attn)
 
 
@@ -88,8 +97,8 @@ def matrix_params(m: Dims) -> int:
     the head reads the embedding's) and every layer's matrices (all
     experts)."""
     tables = 1 if m.tied else 2
-    return tables * m.vocab * m.d \
-        + m.layers * layer_matrix_params(m, active=False)
+    return tables * m.vocab * m.d + sum(
+        layer_matrix_params(m, active=False, i=i) for i in range(m.layers))
 
 
 def flash_causal_flops(B: int, S: int, H: int, D: int) -> float:

@@ -24,33 +24,17 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import blocks
 from . import reference as ref
 from .layout import Dims, groups, head_table, layer_leaves
 from .weights import draw_group
 
 
 def moe_groups(m: Dims, B: int, S: int, new: int, device) -> List[torch.Tensor]:
-    """The dispatch groups of one served batch over the reference's
-    (B, S + new - 1) token grid, flattened row-major: the prefill's B * S
-    tokens in (request, position) order cut into groups of
-    min(group_size, B S), then one group of the B rows at each decode
-    position (cut into groups of min(group_size, B))."""
-    if m.block != "mla_moe":
-        return []
-    T = S + new - 1
-    b = torch.arange(B, device=device)
-    pre = (b[:, None] * T + torch.arange(S, device=device)).reshape(-1)
-    g = min(m.group_size, B * S)
-    if pre.numel() % g:
-        raise ValueError(f"{pre.numel()} prefill tokens in groups of {g}")
-    out = [pre.view(-1, g)]
-    if new > 1:
-        dec = b[None, :] * T + torch.arange(S, T, device=device)[:, None]
-        gd = min(m.group_size, B)
-        if B % gd:
-            raise ValueError(f"{B} decode rows in groups of {gd}")
-        out.append(dec.reshape(-1, gd))
-    return out
+    """The groups of tokens over which one served batch's expert capacity
+    is taken, over the reference's (B, S + new - 1) token grid flattened
+    row-major: the block's ``dispatch_groups``, ``[]`` for none."""
+    return blocks.load(m.block).dispatch_groups(m, B, S, new, device)
 
 
 class Weights:

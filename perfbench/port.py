@@ -12,40 +12,40 @@ from typing import Dict
 
 import torch
 
+from . import blocks
 from .layout import Dims
 
 #: the port's RMSNorm has this eps, fixed in its code
 PORT_EPS = 1e-6
 
 
+def configs():
+    """The port's configuration types (``repro_torch.configs.base``), for
+    a block's ``arch_config``."""
+    from repro_torch.configs import base
+    return base
+
+
+def common(m: Dims, cfg: Dict, name: str, remat: str) -> Dict:
+    """The ``ArchConfig`` keys every block sets alike."""
+    return dict(arch_id=name, source=cfg["source"], num_layers=m.layers,
+                d_model=m.d, num_heads=m.heads, vocab_size=m.vocab,
+                rope_theta=m.rope_theta, activation="silu",
+                param_dtype=cfg["torch_dtype"],
+                compute_dtype=cfg["compute_dtype"], remat=remat,
+                tie_embeddings=m.tied)
+
+
 def arch_config(m: Dims, cfg: Dict, name: str, remat: str = "none"):
-    """The port's ``ArchConfig`` for a configuration file."""
-    from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
-    if m.eps != PORT_EPS:
-        raise ValueError(f"the port's norms use eps {PORT_EPS}, the "
+    """The port's ``ArchConfig`` for a configuration file: its block's
+    ``arch_config``. Its norms' eps has to be the configuration's: the
+    ``norm_eps`` the ``ArchConfig`` states, else ``PORT_EPS``."""
+    arch = blocks.load(m.block).arch_config(m, cfg, name, remat)
+    eps = getattr(arch, "norm_eps", PORT_EPS)
+    if m.eps != eps:
+        raise ValueError(f"the port's norms use eps {eps}, the "
                          f"configuration states {m.eps}")
-    common = dict(arch_id=name, source=cfg["source"], num_layers=m.layers,
-                  d_model=m.d, num_heads=m.heads, vocab_size=m.vocab,
-                  rope_theta=m.rope_theta, activation="silu",
-                  param_dtype=cfg["torch_dtype"],
-                  compute_dtype=cfg["compute_dtype"], remat=remat,
-                  tie_embeddings=m.tied)
-    if m.block == "gqa_dense":
-        return ArchConfig(family="dense", num_kv_heads=m.kv_heads,
-                          head_dim=m.head_dim, d_ff=m.d_ff, attention="gqa",
-                          qk_norm=m.qk_norm, **common)
-    return ArchConfig(
-        family="moe", num_kv_heads=m.kv_heads, d_ff=m.expert_ff,
-        attention="mla",
-        mla=MLAConfig(q_lora_rank=m.q_lora, kv_lora_rank=m.kv_lora,
-                      qk_nope_head_dim=m.nope, qk_rope_head_dim=m.rope,
-                      v_head_dim=m.v_dim),
-        moe=MoEConfig(num_experts=m.experts, top_k=m.top_k,
-                      expert_d_ff=m.expert_ff, num_shared_experts=m.shared,
-                      shared_d_ff=m.expert_ff,
-                      capacity_factor=m.capacity_factor,
-                      group_size=m.group_size),
-        **common)
+    return arch
 
 
 def params_from(arch, leaves: Dict[str, torch.Tensor]):

@@ -2,10 +2,12 @@
 
 It imports nothing of the program. It reads its sizes from the
 configuration file (``layout.dims``) and its weights from the benchmark's
-generator (``weights``), one layer group at a time, and works in float32
-with TF32 off. ``Precision`` says how its weight products round: ``FP32``
-is the reference; ``FP8`` rounds both operands of every weight product to
-float8 e4m3 (activations per row, weights per output column, each scaled
+generator (``weights``), one layer group at a time; each layer is its
+block's ``layer`` (``blocks/<block>.py``), built from the helpers here
+(``rmsnorm``, ``rope``, ``gqa``, ``mla``, ``mlp``, ``moe``). It works in
+float32 with TF32 off. ``Precision`` says how its weight products round:
+``FP32`` is the reference; ``FP8`` rounds both operands of every weight
+product to float8 e4m3 (activations per row, weights per output column, each scaled
 to the format's largest value), the control that a later change to lower
 precision would resemble. The router and attention's own products stay
 in float32 in both.
@@ -25,6 +27,7 @@ from typing import Callable, Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from . import blocks
 from .layout import Dims
 
 #: a layer's weights by leaf name: float32 or bfloat16 tensors on one device
@@ -197,18 +200,8 @@ def moe(m: Dims, w: Weights, p: str, h: torch.Tensor,
 
 def block(m: Dims, w: Weights, i: int, x: torch.Tensor,
           groups: Sequence[torch.Tensor], prec: Precision) -> torch.Tensor:
-    """One pre-norm layer over x (B, T, d), float32."""
-    p = f"layers.{i}."
-    h = rmsnorm(x, w[p + "attn_norm.scale"], m.eps)
-    attn = gqa if m.block == "gqa_dense" else mla
-    x = x + attn(m, w, p + "attn.", h, prec).view(x.shape)
-    h = rmsnorm(x, w[p + "ffn_norm.scale"], m.eps)
-    if m.block == "gqa_dense":
-        f = mlp(w[p + "mlp.w_gate"], w[p + "mlp.w_up"], w[p + "mlp.w_down"],
-                h, prec)
-    else:
-        f = moe(m, w, p + "moe.", h.reshape(-1, m.d), groups, prec)
-    return x + f.view(x.shape)
+    """Layer i over x (B, T, d), float32: its block's ``layer``."""
+    return blocks.load(m.block).layer(m, w, i, x, groups, prec)
 
 
 def final_hidden(m: Dims, layer_weights: Callable[[int], Weights],

@@ -1,5 +1,6 @@
-"""The plain reference of a training cell: three AdamW steps of the dense
-decoder in float32, from the benchmark's weights.
+"""The plain reference of a training cell: three AdamW steps of the
+decoder in float32, from the benchmark's weights, each layer its block's
+``layer`` (a block whose ``TRAINABLE`` is set; ``blocks/<block>.py``).
 
 It follows the job as its traffic file states it: the next-token
 cross-entropy over every position but the last, the gradient clipped to
@@ -29,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from . import blocks
 from . import reference as ref
 from .layout import Dims, groups, layer_leaves
 from .weights import draw_group
@@ -127,9 +129,11 @@ class RefTrainer:
                  dtype=torch.bfloat16,
                  firsts: Optional[Dict[str, "FirstGrads"]] = None,
                  keep_first: bool = False):
-        if m.block != "gqa_dense" or not m.tied:
-            raise NotImplementedError("the training reference is dense, its "
-                                      "head reading the embedding's table")
+        if not blocks.load(m.block).TRAINABLE or not m.tied:
+            raise NotImplementedError(
+                "the training reference takes a block whose TRAINABLE is "
+                "set, its head reading the embedding's table (block "
+                f"{m.block!r}, tied {m.tied})")
         self.m, self.seed, self.device, self.dtype = m, seed, device, dtype
         self.moment_dtype = torch.float32 if opt["fp32_moments"] else dtype
         self.opt, self.warmup, self.total, self.prec = opt, warmup, total, prec

@@ -22,7 +22,7 @@ from typing import Dict
 
 import numpy as np
 
-from . import judge, port
+from . import blocks, judge, port
 from . import trace as tracing
 from . import traffic as traffic_gen
 from .harness import Run, device_info, free_device
@@ -49,15 +49,16 @@ def serve_metrics(batches) -> Dict[str, float]:
 
 def judged_rows(m, tr: Dict, seed: int, k: int) -> np.ndarray:
     """The requests of judged batch k: ``judge_requests`` of its rows
-    drawn from the seed, or all of them. A mixture of experts is judged
-    whole: its capacity is taken over the batch's tokens together."""
+    drawn from the seed, or all of them. A block whose ``JUDGED_WHOLE``
+    is set (a mixture of experts, its capacity taken over the batch's
+    tokens together) is judged whole."""
     B = tr["max_batch"]
     n = tr.get("judge_requests", B)
     if n >= B:
         return np.arange(B)
-    if m.block == "mla_moe":
-        raise ValueError("a mixture of experts is judged a whole batch at "
-                         "a time: leave out judge_requests")
+    if blocks.load(m.block).JUDGED_WHOLE:
+        raise ValueError(f"block {m.block!r} is judged a whole batch at a "
+                         "time: leave out judge_requests")
     pick = traffic_gen.rng(seed, "judge_rows", k).choice(B, size=n,
                                                          replace=False)
     return np.sort(pick)
